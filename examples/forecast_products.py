@@ -2,7 +2,7 @@
 
 1. the drop-in numpy API (what existing mi-fieldcalc users call),
 2. the native Field surface, batched over levels and jitted,
-3. the sharded fused pipeline over a device mesh.
+3. the sharded pipeline over a device mesh.
 
 Runs anywhere (CPU included): ``python examples/forecast_products.py``.
 """
@@ -68,17 +68,13 @@ def main():
           f"{np.asarray(iso.td.values)[0][np.asarray(iso.td.mask)[0]].mean():6.1f} K")
 
     # -- 3. sharded: same math, domain-decomposed over every device ------
-    from mi_fieldcalc_tpu.parallel import grid_mesh
-    from mi_fieldcalc_tpu.parallel.fused import derived_fields_fused_sharded
+    from mi_fieldcalc_tpu.models.pipeline import RADIUS
+    from mi_fieldcalc_tpu.parallel import grid_mesh, run_sharded
 
-    # padding-optimal (gy, gx) split for this grid (PERF.md "2-D
-    # decomposition"); falls back to square-ish without a grid_shape
     mesh = grid_mesh(grid_shape=(ny, nx))
     n = len(jax.devices())
-    interp = jax.devices()[0].platform != "tpu"
-    sh = derived_fields_fused_sharded(mesh, *fields, *coefs,
-                                      jnp.asarray(mapr), jnp.asarray(mapr),
-                                      jnp.asarray(fcor), interpret=interp)
+    sh = jax.jit(lambda *a: run_sharded(derived_fields, mesh, RADIUS, *a))(
+        *fields, *coefs, *geo)
     agree = np.allclose(
         np.asarray(sh.vort.values)[np.asarray(out.vort.mask)],
         np.asarray(out.vort.values)[np.asarray(out.vort.mask)], rtol=2e-5)
@@ -86,7 +82,7 @@ def main():
           f"device vorticity: {agree}")
 
     # -- 4. batch boundaries: one call per product FAMILY -----------------
-    # any set of hybrid-level conversions in ONE kernel pass (sentinel
+    # any set of hybrid-level conversions in ONE program (sentinel
     # numpy in/out; fully defined steps auto-route to the fast path)
     from mi_fieldcalc_tpu.staging import run_hlevel_suite_np
 
@@ -97,8 +93,7 @@ def main():
           f"({sorted(suite)})")
 
     # -- 5. call storms: many small drop-in calls, ONE device program ------
-    # the Diana-caller pattern; measured 8.7-10x on a 22-call storm
-    # (PERF.md "Call-storm batching")
+    # the Diana-caller pattern
     t850 = np.asarray(tk[-1])
     rh850 = np.clip(np.abs(np.asarray(q[-1])) * 1e4, 5.0, 95.0)
     with fc.batch():
@@ -125,10 +120,9 @@ def main():
               f"{hm[hm < 1e34].mean():.2e} kg/kg")
 
     # -- 7. subset consumers: fetch only the planes you read --------------
-    # a display consumer that uses 2 of a storm's products crosses the
-    # link once with just those planes (fc.fetch), instead of pulling
-    # every same-shape sibling via np.asarray — 31 vs 42 ms/cycle on
-    # the 22-call storm (PERF.md "Forecast cycles: subset consumers")
+    # a display consumer that uses 2 of a storm's products fetches just
+    # those planes in one transfer (fc.fetch), instead of pulling every
+    # same-shape sibling via np.asarray
     with fc.batch(cache_inputs=True):
         c1 = fc.cvtemp(t850, 1)                 # K -> C
         h1 = fc.plevelhum(t850, rh850, 850.0, "", 3)
@@ -140,9 +134,7 @@ def main():
     # -- 8. aligned ingest: the production-grid option --------------------
     # re-grid ragged producer grids once at staging onto the
     # tile-aligned logical grid (mask-aware bilinear; map ratios
-    # rescaled) — the whole downstream pipeline then does 100% useful
-    # DMA (production_vs_baseline 0.93 vs the ragged 0.84, BENCH_r05).
-    # The product grid changes (e.g. 719x929 -> 720x1024):
+    # rescaled).  The product grid changes (e.g. 719x929 -> 720x1024):
     from mi_fieldcalc_tpu.staging import run_derived_fields_np
     rag = np.s_[..., :95, :121]                 # a ragged producer grid
     out_al = run_derived_fields_np(tk[rag], q[rag], u[rag], v[rag],

@@ -3,7 +3,7 @@
 The reference installs a pybind11 extension named ``mi_fieldcalc``
 binding the ``ValuesDefined`` enum and 15 functions
 (python/py_mi_fieldcalc.cc:179-208).  This module lets that code run
-unchanged against the TPU-native build::
+unchanged against this build::
 
     import mi_fieldcalc                       # this shim
     out = mi_fieldcalc.abshum(t, rhum, undef) # same signature/layout

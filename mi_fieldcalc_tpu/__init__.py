@@ -1,11 +1,12 @@
-"""mi_fieldcalc_tpu — TPU-native meteorological field-calculation engine.
+"""mi_fieldcalc_tpu — accelerator-native meteorological field-calculation
+engine.
 
 A from-scratch JAX/XLA/Pallas re-design of MET Norway's mi-fieldcalc
-(reference snapshot mounted read-only at /root/reference): the full derived
+(metno/mi-fieldcalc): the full derived
 -field operator suite over batched 2-D/3-D lat-lon grids, with the
 reference's missing-value sentinel + tri-state definedness flag replaced by
-mask lanes fused into every kernel, and multi-chip scaling via
-``jax.sharding`` domain decomposition with ICI halo exchange.
+mask lanes fused into every kernel, and multi-device scaling via
+``jax.sharding`` domain decomposition with halo exchange.
 
 Public surface:
 

@@ -1,19 +1,16 @@
 """Platform-deterministic f32 transcendentals (round 4).
 
-XLA:TPU's pow/log/log10 are coarse approximations (the round-4 on-TPU
-golden pass measured logField ~3000 ulp and pow-heavy conversions
-~30-60 ulp off the host-libm oracle — TPUTEST_r04 "golden_jnp_tpu"),
-and the icing solvers showed that last-ulp libm drift amplifies through
+Backend math libraries differ: an accelerator's native pow/log/log10
+can sit tens to thousands of ulp off the host-libm oracle, and the
+icing solvers showed that last-ulp libm drift amplifies through
 sensitive stages.  These Cephes-structured implementations use ONLY
-mul/add/select/int/bitcast, so XLA:CPU, XLA:TPU, and Mosaic lower them
-to the same arithmetic:
+mul/add/select/int/bitcast, so every XLA backend and a Pallas kernel
+lower them to the same arithmetic:
 
-* every backend computes the same bits (Mosaic-vs-XLA probed bitwise
-  on chip, PRECISION.md "TPU revalidation");
 * accuracy is libm-class — exp ≤1 ulp (bitwise equal to XLA:CPU expf
   on 400k samples), log ≤0.9 ulp, tanh ≤1.3 ulp, the pow composition
-  ≤~5 ulp over (1e-6, 1e6) — so TPU results inherit the CPU-calibrated
-  conformance the goldens were tuned against.
+  ≤~5 ulp over (1e-6, 1e6) — so accelerator results inherit the
+  CPU-calibrated conformance the goldens were tuned against.
 
 Constants are the public-domain Cephes expf/logf/tanhf reduction
 constants.  All functions are elementwise jnp and safe inside Pallas
@@ -136,7 +133,7 @@ def pow_f32(x, c):
     ~0.15 ulp per unit of |c*ln x| — ≤~5 ulp on every production
     exponent domain (kappa over pressure ratios, 0.16 over wind
     speeds, powerField over field magnitudes), and still an order of
-    magnitude tighter than XLA:TPU's native power.  If a future op
+    magnitude tighter than a coarse backend power.  If a future op
     needs large |c*ln x| at ≤2 ulp, do the Cephes base-2 reduction as
     in :func:`pow10_f32` with a two-product c*log2(x)."""
     r = exp_f32(_f32(c) * log_f32(x))
@@ -168,9 +165,9 @@ def pow_posc_f32(x, c):
     subnormal ``jnp.log`` fallback and nan/inf edge selects, exp_f32's
     clamp + two-step ln2 reduction, and the ``jnp.power`` fallback
     branch (all evaluated on every lane under ``where``).  Arithmetic
-    is mul/add/select/int/bitcast only — bitwise identical across
-    XLA:CPU, XLA:TPU, and Mosaic like the rest of this module, so the
-    flagship kernel and the jnp op surface share one result.
+    is mul/add/select/int/bitcast only, like the rest of this module,
+    so the pipeline kernel and the jnp op surface evaluate the same
+    arithmetic.
     """
     c_d = float(c)
     c_hi = float(np.float32(round(c_d * 4096.0) / 4096.0))  # 12-bit hi

@@ -6,7 +6,7 @@ sentinel float, and ``None`` returned for invalid shapes or parameters
 (py_mi_fieldcalc.cc:72-96).  This module reproduces that surface exactly —
 ``import mi_fieldcalc_tpu.api as fc`` is a drop-in for
 ``import mi_fieldcalc as fc`` — while running every calculation through
-the TPU-native mask-lane kernels.
+the mask-lane device programs.
 
 Sentinel decode/encode happens only here, at the boundary, mirroring
 ``is_defined`` (FieldCalculations.h:42-45); inside, everything is Fields.
@@ -180,32 +180,10 @@ def vesselIcingMertins(airtemp, seatemp, u, v, sal, aice,
                  sal, aice)
 
 
-def _icing_modstall_auto(*args):
-    # fused VMEM solver kernel on TPU, whole-array jnp path elsewhere
-    # (equivalent: tests/test_icing_fused.py).  Exact-by-default: the
-    # kernel ships warm_fp=KERNEL_WARM_FP, whose default 0 runs the jnp
-    # path's exact 32-iteration height-sweep warmup, keeping TPU output
-    # within the documented 2e-3 icing tolerance (CONFORMANCE.md).  The
-    # early-armed projection (a further 2.4x step-time win that shifts
-    # ~1e-5 of points by up to 1.2e-2) is opt-in via MF_WARM_FP=8 or
-    # the warm_fp kwarg.
-    import jax
-    if jax.devices()[0].platform == "tpu":
-        return ops.vessel_icing_modstall_fused(*args)
-    return ops.vessel_icing_modstall(*args)
-
-
-def _icing_mincog_auto(*args):
-    import jax
-    if jax.devices()[0].platform == "tpu":
-        return ops.vessel_icing_mincog_fused(*args)
-    return ops.vessel_icing_mincog(*args)
-
-
 def vesselIcingModStall(sal, wave, x_wind, y_wind, airtemp, rh, sst, p, Pw,
                         aice, depth, vs: float, alpha: float, zmin: float,
                         zmax: float, undef: float = UNDEF):
-    return _wrap(_icing_modstall_auto, undef, sal, wave, x_wind,
+    return _wrap(ops.vessel_icing_modstall, undef, sal, wave, x_wind,
                  y_wind, airtemp, rh, sst, p, Pw, aice, depth,
                  scalars=(vs, alpha, zmin, zmax))
 
@@ -213,7 +191,7 @@ def vesselIcingModStall(sal, wave, x_wind, y_wind, airtemp, rh, sst, p, Pw,
 def vesselIcingMincog(sal, wave, x_wind, y_wind, airtemp, rh, sst, p, Pw,
                       aice, depth, vs: float, alpha: float, zmin: float,
                       zmax: float, alt: int, undef: float = UNDEF):
-    return _wrap(_icing_mincog_auto, undef, sal, wave, x_wind, y_wind,
+    return _wrap(ops.vessel_icing_mincog, undef, sal, wave, x_wind, y_wind,
                  airtemp, rh, sst, p, Pw, aice, depth,
                  scalars=(vs, alpha, zmin, zmax, alt))
 

@@ -1,14 +1,16 @@
 """Physical constants, thermodynamic tables, and ICAO standard atmosphere.
 
-TPU-native re-design of the reference's ``miutil::constants``
+Re-design of the reference's ``miutil::constants``
 (src/mi_fieldcalc/MetConstants.{h,cc}).  Scalar table walks become
-vectorized gathers/selects so they run on VPU lanes.
+vectorized selects so they run as elementwise vector code.
 
 All constants carry the same float32 values as the reference
 (MetConstants.h:39-53).
 """
 
 from __future__ import annotations
+
+import contextvars
 
 import numpy as np
 import jax.numpy as jnp
@@ -72,49 +74,28 @@ def ewt_defined(l):
     return (l >= 0) & (l < N_EWT - 1)
 
 
-#: Trace-time override for :func:`_ewt_pair` — set by Pallas kernels
-#: that trace the jnp thermo formulas in-kernel (ops/fused_suite.py):
-#: inside Mosaic the select chain below is ~5x costlier than a VMEM
-#: lane-gather, so kernels install a ``take_along_axis``-based pair
-#: lookup over an SMEM/VMEM table ref for the duration of the trace.
-#: Both implementations return exact table values (bit-exact lookup).
-_EWT_PAIR_IMPL = None
-
-
-class ewt_pair_impl:
-    """Context manager installing a ``_ewt_pair`` override at trace time
-    (single-threaded tracing; used by fused kernels)."""
-
-    def __init__(self, fn):
-        self._fn = fn
-
-    def __enter__(self):
-        global _EWT_PAIR_IMPL
-        self._saved, _EWT_PAIR_IMPL = _EWT_PAIR_IMPL, self._fn
-
-    def __exit__(self, *exc):
-        global _EWT_PAIR_IMPL
-        _EWT_PAIR_IMPL = self._saved
+#: Pair-lookup override for :func:`_ewt_pair`, set by the GPU pipeline
+#: kernel (ops/fused.py) while it traces the thermo formulas: there a
+#: gather from the table in device memory replaces the select chain.
+#: Both return exact table values.
+EWT_PAIR_LOOKUP = contextvars.ContextVar("mf_ewt_pair", default=None)
 
 
 def _ewt_pair(ls):
     """``(ewt[ls], ewt[ls+1])`` for ``ls`` in [0, 39] — WITHOUT a gather.
 
-    A dynamic gather from a 41-entry table lowers to a scalar loop on the
-    TPU backend here (~3500x slower than the surrounding elementwise ops,
-    measured), and a one-hot @ table MXU contraction materializes a
-    ``[..., 40]`` float32 intermediate (40x the field's own HBM traffic)
-    and runs at <1% MXU utilization (K=40, N=2 of a 128x128 tile).
-    Instead: an unrolled chain of 40 compare+selects per output.  These are
-    pure VPU lanes that XLA fuses into the surrounding elementwise kernel,
+    A dynamic gather from a 41-entry table does not fuse into the
+    surrounding elementwise program everywhere, and a one-hot @ table
+    contraction materializes a ``[..., 40]`` float32 intermediate (40x
+    the field's own memory traffic).  Instead: an unrolled chain of 40
+    compare+selects per output.  These are pure elementwise ops that XLA
+    fuses into the surrounding program,
     so the lookup costs ~120 vector ops/point and ZERO extra HBM traffic.
     The selected entries are exact table values (bit-exact lookup).
-
-    Pallas kernels override this via :class:`ewt_pair_impl` (in-kernel
-    Mosaic lane-gathers beat the select chain).
     """
-    if _EWT_PAIR_IMPL is not None:
-        return _EWT_PAIR_IMPL(ls)
+    lookup = EWT_PAIR_LOOKUP.get()
+    if lookup is not None:
+        return lookup(ls)
     e0 = jnp.full(ls.shape, EWT[0], jnp.float32)
     e1 = jnp.full(ls.shape, EWT[1], jnp.float32)
     for k in range(1, N_EWT - 1):
@@ -245,9 +226,9 @@ def geo_altitude_from_fl(fl):
 def pidcp_from_p(p):
     """``(p/p0)**kappa`` — Exner function / cp (FieldCalculations.cc:308-311).
 
-    Deterministic pow: XLA:TPU's native power is tens of ulps off host
-    libm and pushed the pow-heavy conversions out of the golden band on
-    chip (TPUTEST_r04).  Round 5 switched the composition from
+    Deterministic pow: a backend's native power can be tens of ulps off
+    host libm, which pushed the pow-heavy conversions out of the golden
+    band on an earlier accelerator.  Round 5 switched the composition from
     ``exp_f32(kappa*log_f32(p))`` to the narrow-domain
     ``_libm.pow_posc_f32`` (<= ~1.2 ulp measured on the Exner domain vs
     ~4.4 for the exp∘log chain, tests/test_libm.py) — cheap enough that

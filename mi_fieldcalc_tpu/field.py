@@ -1,4 +1,4 @@
-"""Core Field type: mask-based missing-value semantics, TPU-native.
+"""Core Field type: mask-based missing-value semantics.
 
 The reference library (mi-fieldcalc) threads a missing-value sentinel
 (``undef``, default 1e35 — src/mi_fieldcalc/FieldDefined.cc:34) plus a
@@ -6,7 +6,7 @@ tri-state ``ValuesDefined`` flag (FieldDefined.h:41) through every operator,
 and re-checks every point with ``is_defined`` predicates
 (FieldCalculations.h:42-98).
 
-On TPU, branches per point are poison; the idiomatic design is an explicit
+On an accelerator, branches per point are poison; the idiomatic design is an explicit
 boolean mask carried next to the values ("mask lanes, not branches").  A
 :class:`Field` is a pytree of
 

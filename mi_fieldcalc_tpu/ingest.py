@@ -1,17 +1,13 @@
 """Aligned ingest: re-grid producer sentinel grids onto the canonical
 tile-aligned layout so the *logical* grid equals the wire grid.
 
-Why this exists (PERF.md "Structural light speed"): the device pipeline
-carries grids padded to (ny%8 == 0, nx%128 == 0) because Pallas DMA pays
-~2x on ragged trailing dims.  For a ragged production grid like the MET
-Norway operational 719x929 (the reference's own perf canary,
-/root/reference/test/FieldCalculationsTest.cc:145-170) the 929 -> 1024
-lane padding is wire traffic that serves no logical point — a ~0.88
-structural ceiling on the roofline fraction no kernel change can lift.
-Re-gridding ONCE at ingest onto a tile-aligned logical grid over the
-same physical domain removes the dead traffic for the entire downstream
-product suite: every plane fetched, every stencil, every later pipeline
-step then does 100% useful DMA (measured ~0.96 vs ~0.87, BENCH_r04).
+Why this exists: a consumer that wants a tile-aligned product grid
+(rows a multiple of 8, columns a multiple of 128) for a ragged
+production grid like the MET Norway operational 719x929 (the
+reference's own perf canary, test/FieldCalculationsTest.cc:145-170) can
+re-grid ONCE at ingest onto such a grid over the same physical domain;
+every downstream plane, stencil and pipeline step then runs on the
+aligned grid.  Whether that pays on the GPU is not measured.
 
 This is an opt-in PRODUCT decision, not a transparent optimization: the
 output grid changes (719x929 -> 720x1024 over the same extent).  The

@@ -1,25 +1,19 @@
 """Canonical tile-aligned device layout for gridded fields.
 
-TPU DMA moves (8, 128)-tiled f32 data.  When a grid's trailing dims are
-not tile-aligned (the MET Norway operational grid is 719x929), every
-block transfer of the Pallas pipelines takes a ragged slow path that
-costs ~2x in effective HBM bandwidth: the flagship fused pipeline
-measured 11.5 ms at 719x929 vs 5.7 ms at 720x1024 on identical logical
-work (tools/perf_lab_pad.py; ny padded to a multiple of 8 and nx to a
-multiple of 128 — either alone does not help, nx matters most).
-
-The framework therefore defines a *canonical padded layout*: grids are
-padded once at the host boundary (rows to a multiple of 8, lanes to a
-multiple of 128), carried padded through whole pipelines, and trimmed
-back to the logical extent only when results leave the device.  Padding
-rules:
+A *padded layout*: grids padded once (rows to a multiple of 8, columns
+to a multiple of 128), carried padded through whole pipelines, and
+trimmed back to the logical extent when results leave the device.  The
+staging layer and the GPU kernel do not need it (the kernel masks its
+ragged edges); it remains for callers that pad grids to split them
+evenly over a device mesh (:func:`padded_shape_sharded`) and for the
+tile-aligned ingest grid (ingest.py).  Padding rules:
 
 * ``Field`` values pad with zeros and masks pad with ``False`` — dead
   points are simply undefined points, so every mask-respecting operator
   is automatically correct on padded grids.
 * Kernels that need the *physical* grid boundary (``fillEdges``) take
   the logical ``(ny, nx)`` as ``global_shape`` and patch logical edges,
-  never padded ones (ops/fused.py already does this for shard seams).
+  never padded ones (ops/fused.py does this, as it does for shard seams).
 * Reductions respect masks, so dead lanes never contaminate counts or
   means.
 
@@ -36,7 +30,7 @@ from .field import Field
 __all__ = ["ROW_TILE", "LANE_TILE", "padded_shape", "padded_shape_sharded",
            "pad_field", "pad_array", "trim_field", "trim_array"]
 
-#: f32 sublane / lane tile extents on current TPUs.
+#: row / column multiples of the padded layout.
 ROW_TILE = 8
 LANE_TILE = 128
 

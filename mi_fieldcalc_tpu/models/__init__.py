@@ -2,10 +2,10 @@
 
 The reference library only exposes single operators; production consumers
 (MET Norway's Diana / fimex stacks) chain them per level on the CPU.  On
-TPU the win is fusing whole derived-field *pipelines* into one jitted
-program over a 3-D ``[nlev, ny, nx]`` stack, so XLA fuses the elementwise
-chains into the stencil reads and every field stays in registers/VMEM
-between operators instead of round-tripping HBM per op.
+an accelerator the win is fusing whole derived-field *pipelines* into one
+jitted program over a 3-D ``[nlev, ny, nx]`` stack, so the elementwise
+chains fuse into the stencil reads instead of round-tripping device
+memory per op.
 """
 
 from .pipeline import (  # noqa: F401

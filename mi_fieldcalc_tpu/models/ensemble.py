@@ -2,7 +2,7 @@
 
 The reference exposes per-point ensemble reductions (meanValue,
 stddevValue, probability — FieldCalculations.cc:2696-2860) that callers
-chain per member and per level on the CPU.  The TPU-native form is one
+chain per member and per level on the CPU.  Here it is one
 jitted program over a ``[nmem, nlev, ny, nx]`` member stack:
 
 * the full derived-field pipeline runs per member via ``vmap`` (one
@@ -15,26 +15,23 @@ jitted program over a ``[nmem, nlev, ny, nx]`` member stack:
 * everything fuses: member fields never round-trip HBM between the
   pipeline and the reductions.
 
-Sharding: the production form is
-:func:`..parallel.fused.ensemble_summary_sharded` — spatial (gy, gx)
-decomposition with the member axis local (each member runs through the
-seam-strip overlap kernel, the summary reduces locally, and the
-probability denominators' whole-field member flags are pmax-reduced
-across shards so every shard sees the reference's global decision).
+Sharding: :func:`..parallel.fused.ensemble_summary_sharded` —
+spatial (gy, gx) decomposition with the member axis local; the
+probability denominators' whole-field member flags are reduced across
+shards, so every shard sees the reference's global decision.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple
 
 import jax
-import jax.numpy as jnp
 
 from ..field import Field
 from ..ops import mean_value, stddev_value, probability
 from .pipeline import DerivedFields, derived_fields
 
-__all__ = ["EnsembleSummary", "ensemble_derived_summary"]
+__all__ = ["EnsembleSummary", "ensemble_derived_summary", "summarize"]
 
 
 class EnsembleSummary(NamedTuple):
@@ -49,10 +46,7 @@ def ensemble_derived_summary(tk: Field, q: Field, u: Field, v: Field,
                              ps: Field, alevel: jax.Array,
                              blevel: jax.Array, xmapr: jax.Array,
                              ymapr: jax.Array, fcoriolis: jax.Array,
-                             wind_limit: float = 15.0,
-                             fused: bool = False,
-                             global_shape=None,
-                             all_defined: bool = False) -> EnsembleSummary:
+                             wind_limit: float = 15.0) -> EnsembleSummary:
     """Derived fields per member + ensemble statistics, one program.
 
     Args:
@@ -61,52 +55,27 @@ def ensemble_derived_summary(tk: Field, q: Field, u: Field, v: Field,
       alevel..fcoriolis: as :func:`..models.derived_fields` (shared by
         all members).
       wind_limit: exceedance threshold (m/s) for the wind probability.
-      fused: run each member through the single-pass Pallas pipeline
-        kernel (``vmap`` batches the pallas_call over members — one
-        program, a member-sized leading grid dim; 5.05 Gpts/s logical on
-        8 members x 8 levels padded vs 4.6 single-member, PERF.md).
-      global_shape: logical ``(ny, nx)`` when inputs ride the canonical
-        padded layout (fused path only, like derived_fields_isobaric).
-      all_defined: caller asserts every logical point of every member is
-        defined — each member runs the pipeline kernel's ALL_DEFINED
-        fast path (no input mask planes, 2 output gate planes; −23%
-        member step time, PERF.md), and the ensemble denominators see
-        constant-True masks for the 10 gate-free fields (XLA folds the
-        ones-reductions).  Fused path only.
 
     Returns an :class:`EnsembleSummary`; the mean/spread cover all 12
     derived fields, probabilities are computed for wind speed and for
-    1-hour temperature advection below 0 (cooling).
+    1-hour temperature advection below 0 (cooling).  The jnp pipeline
+    runs here rather than the GPU kernel: XLA fuses it into the member
+    reductions, so the 12 member fields never reach device memory, and
+    on an H100 that measured faster than the kernel (PERF.md).
     """
-    if (global_shape is not None or all_defined) and not fused:
-        raise ValueError("ensemble_derived_summary: global_shape/"
-                         "all_defined require fused=True")
-    if fused:
-        from ..ops.fused import derived_fields_fused
-        interp = jax.devices()[0].platform != "tpu"
-        per_member = jax.vmap(
-            lambda tkm, qm, um, vm, psm: derived_fields_fused(
-                tkm, qm, um, vm, psm, alevel, blevel, xmapr, ymapr,
-                fcoriolis, stacked=True, interpret=interp,
-                global_shape=global_shape, all_defined=all_defined))
-        st = per_member(tk, q, u, v, ps)   # values (nmem, 12, nlev, ...)
-        from .pipeline import DerivedFieldsStacked
-        out = DerivedFields(*[
-            Field(st.values[:, i],
-                  DerivedFieldsStacked.mask_plane(st.masks, i,
-                                                  st.values[:, i], axis=1,
-                                                  region=st.region))
-            for i in range(12)])
-    else:
-        per_member = jax.vmap(
-            lambda tkm, qm, um, vm, psm: derived_fields(
-                tkm, qm, um, vm, psm, alevel, blevel, xmapr, ymapr,
-                fcoriolis))
-        out = per_member(tk, q, u, v, ps)   # DerivedFields of [nmem, ...]
+    per_member = jax.vmap(
+        lambda tkm, qm, um, vm, psm: derived_fields(
+            tkm, qm, um, vm, psm, alevel, blevel, xmapr, ymapr,
+            fcoriolis))
+    return summarize(per_member(tk, q, u, v, ps), float(wind_limit))
 
+
+def summarize(out: DerivedFields, wind_limit: float) -> EnsembleSummary:
+    """The ensemble statistics of member-stacked derived fields (Fields
+    of ``[nmem, nlev, ny, nx]``)."""
     mean = DerivedFields(*[mean_value(f) for f in out])
     spread = DerivedFields(*[stddev_value(f) for f in out])
-    prob_wind = probability(1, out.wspeed, (float(wind_limit),))
+    prob_wind = probability(1, out.wspeed, (wind_limit,))
     prob_t_freeze = probability(2, out.tadv, (0.0,))
     return EnsembleSummary(mean=mean, spread=spread, prob_wind=prob_wind,
                            prob_t_freeze=prob_t_freeze)

@@ -65,81 +65,38 @@ class DerivedFieldsStacked(NamedTuple):
     ``(12, nlev, ny, nx)`` float32 array plus one mask array, in
     :class:`DerivedFields` field order.
 
-    This is the production layout of the fused kernel
-    (``derived_fields_fused(..., stacked=True)``): two output buffers
-    instead of 24 means fewer, larger DMA writes, and downstream
-    consumers (file writers, ensemble reducers) usually want the planes
-    contiguous anyway.  ``masks`` is an int8 plane stack — by DEFAULT
-    the 9 DEDUPLICATED planes (``dedup_masks=True``: td/duc/dv are
-    bitwise-identical to rh/the/vo by construction, so the kernel skips
-    3 of 12 plane writes per step on a DMA-byte-bound path), indexed
-    through :data:`MASK9`; ``dedup_masks=False`` restores the plain
-    12-plane stack; ``packed_masks=True`` ONE ``(nlev, ny, nx)``
-    int32 bit-plane with bit ``k`` = field ``k`` defined (fewer mask
-    bytes, measured slightly slower; kept as an ABI option); and
-    ``levpack_masks=True`` a ``(9, ny, nx)`` **uint32** stack with bit
-    ``L`` = level ``L`` defined — the most compact mask payload (8x
-    smaller than the int8 stack; step time a wash, the int8 mask
-    streams already hide behind the f32 streams — PERF.md "Structural
-    light speed").  Named accessors slice / unpack lazily — outside
-    ``jit`` each access is one device-side op.
-
-    ``region`` is populated only for the ALL_DEFINED 2-plane gate
-    layout: a ``[1, ny, nx]`` bool plane, True exactly on the logical
-    grid region, that the accessors AND into the 10 synthesized
-    constant-True masks — so the canonical padded-layout invariant
-    (masks False on dead rows/lanes) holds on EVERY accessor path with
-    no caller-side trimming.  ``None`` for the written-mask layouts,
-    whose planes are region-gated by the kernel itself.  (On unsharded
-    unpadded grids the plane is compile-time constant True and XLA
-    folds it out of downstream reductions.)"""
+    This is the output layout of the GPU pipeline kernel
+    (``derived_fields_fused(..., stacked=True)``) and of the staging
+    layer: two buffers instead of 24, and downstream consumers (file
+    writers, ensemble reducers) usually want the planes contiguous.
+    ``masks`` is an int8 (or bool) plane stack in one of three layouts:
+    the 9 DEDUPLICATED planes (td/duc/dv are identical to rh/the/vo by
+    construction), indexed through :data:`MASK9`; the 2 data-dependent
+    gate planes of the ``all_defined`` path, indexed through
+    :data:`MASK2`; or the plain 12-plane stack.  Named accessors slice
+    lazily — outside ``jit`` each access is one device-side op."""
     values: jax.Array
     masks: jax.Array
-    region: jax.Array | None = None
 
     #: field index -> plane index in the deduplicated 9-plane mask stack
     #: (DerivedFields order: p th rh td the duc ws vo dv ad gt tf)
     MASK9 = (0, 1, 2, 2, 3, 3, 4, 5, 5, 6, 7, 8)
 
-    #: field index -> plane index in the ALL_DEFINED 2-plane mask stack
+    #: field index -> plane index in the all_defined 2-plane mask stack
     #: (plane 0 = humidity table gate for rh/td, plane 1 = TFP's
     #: |grad T| != 0 gate; -1 = constant True)
     MASK2 = (-1, -1, 0, 0, -1, -1, -1, -1, -1, -1, -1, 1)
 
     @classmethod
-    def mask_plane(cls, masks, i: int, values_i, axis: int = 0,
-                   region=None):
-        """Field ``i``'s bool mask from any stacked-mask layout — the
-        packed int32 bit-plane, the 2-plane ALL_DEFINED gate stack
-        (region-gated True for the 10 gate-free fields), the
-        deduplicated 9-plane stack, or the plain 12-plane stack.
+    def mask_plane(cls, masks, i: int, values_i, axis: int = 0):
+        """Field ``i``'s bool mask from any stacked-mask layout.
         ``axis`` is the plane axis (1 for member-batched
-        ``[nmem, planes, ...]`` stacks); ``values_i`` supplies the
-        shape for synthesized masks; ``region`` is the producing
-        stack's ``region`` plane (broadcast-ANDed into synthesized
-        masks so they are False on padded dead rows/lanes — the
-        canonical-layout invariant holds on every accessor path).
-        Single source of truth for the layout mapping — used by
-        :meth:`field`, the ensemble summary, and the sharded ensemble
-        body."""
-        if masks.dtype == jnp.uint32:
-            # LEV-packed: plane j of the deduplicated 9-stack, bit L =
-            # level L.  Unpack along a fresh lev axis at `axis`.
-            j = cls.MASK9[i] if masks.shape[axis] == 9 else i
-            m = jnp.take(masks, j, axis=axis) if axis else masks[j]
-            nlev = values_i.shape[axis]
-            m_e = jnp.expand_dims(m.view(jnp.int32), axis)
-            levs = jnp.arange(nlev, dtype=jnp.int32).reshape(
-                [-1 if d == axis else 1 for d in range(m_e.ndim)])
-            return ((m_e >> levs) & 1) != 0
-        if masks.ndim == values_i.ndim:            # packed bit-plane
-            return ((masks >> i) & 1) != 0
+        ``[nmem, planes, ...]`` stacks); ``values_i`` supplies the shape
+        for the constant-True masks of the 2-plane layout."""
         nplanes = masks.shape[axis]
-        if nplanes == 2:                           # all_defined gates
+        if nplanes == 2:
             j = cls.MASK2[i]
             if j < 0:
-                if region is not None:
-                    return jnp.broadcast_to(region, values_i.shape)
                 return jnp.ones(values_i.shape, bool)
         else:
             j = cls.MASK9[i] if nplanes == 9 else i
@@ -148,8 +105,7 @@ class DerivedFieldsStacked(NamedTuple):
 
     def field(self, i: int) -> Field:
         return Field(self.values[i],
-                     self.mask_plane(self.masks, i, self.values[i],
-                                     region=self.region))
+                     self.mask_plane(self.masks, i, self.values[i]))
 
     def as_fields(self) -> "DerivedFields":
         return DerivedFields(*[self.field(i) for i in range(12)])
@@ -212,66 +168,20 @@ def derived_fields_isobaric(tk: Field, q: Field, u: Field, v: Field,
                             ps: Field, alevel: jax.Array, blevel: jax.Array,
                             xmapr: jax.Array, ymapr: jax.Array,
                             fcoriolis: jax.Array,
-                            plevels=STANDARD_PLEVELS,
-                            fused: bool = False,
-                            global_shape=None,
-                            stacked: bool = False,
-                            all_defined: bool = False) -> DerivedFields:
+                            plevels=STANDARD_PLEVELS) -> DerivedFields:
     """The 3-D vertical pipeline (BASELINE.json config 4): interpolate the
     prognostic fields from hybrid model levels to standard isobaric
     surfaces (log-p linear, mask-aware — ops/vertical.py), then run the
     full derived-field suite on the interpolated stack.  One jittable
     program; the interpolation's level reductions fuse with the
-    elementwise suite under XLA.
-
-    ``fused=True`` runs both stages through Pallas: the interpolation via
-    the one-pass multi-variable column kernel
-    (ops/vertical_fused.hlevel_to_plevel_fused — reads each level stack
-    once instead of once per target), and the derived-field tail through
-    the single-pass pipeline kernel — the constant-pressure surfaces are
-    expressible in the kernel's hybrid law as ``alevel = plevels,
-    blevel = 0`` with an all-defined surface-pressure field.
-
-    ``global_shape`` (fused path only): the logical ``(ny, nx)`` when
-    the inputs are in the canonical padded layout (layout.py) — edge
-    fills fire at the logical boundary; outputs come back padded.
-
-    ``all_defined=True`` (fused path only) asserts every input point is
-    defined: the interpolation kernel skips its 5 input mask planes and
-    writes ONE shared bracket-gate mask.  The derived-field tail keeps
-    its full mask machinery — the interpolated masks are data-dependent
-    (below-surface / above-top points are undefined) even on fully
-    defined inputs."""
+    elementwise suite under XLA (on an H100 this measured faster than
+    handing the interpolated stack to the pipeline kernel, PERF.md)."""
     from ..ops import hlevel_to_plevel
 
-    if (global_shape is not None or stacked or all_defined) and not fused:
-        raise ValueError("derived_fields_isobaric: global_shape/stacked/"
-                         "all_defined require fused=True")
-    nlev = tk.values.shape[0]
     plevels = tuple(float(t) for t in plevels)
-    if fused:
-        from ..ops.vertical_fused import hlevel_to_plevel_fused
-        tki, qi, ui, vi = hlevel_to_plevel_fused(
-            (tk, q, u, v), ps, alevel, blevel, plevels,
-            interpret=jax.devices()[0].platform != "tpu",
-            all_defined=all_defined)
-    else:
-        tki = hlevel_to_plevel(tk, ps, alevel, blevel, plevels)
-        qi = hlevel_to_plevel(q, ps, alevel, blevel, plevels)
-        ui = hlevel_to_plevel(u, ps, alevel, blevel, plevels)
-        vi = hlevel_to_plevel(v, ps, alevel, blevel, plevels)
+    tki, qi, ui, vi = (hlevel_to_plevel(f, ps, alevel, blevel, plevels)
+                       for f in (tk, q, u, v))
     np_ = len(plevels)
-    if fused:
-        from ..ops.fused import derived_fields_fused
-        ny, nx = tki.values.shape[-2:]
-        ps1 = Field(jnp.zeros((ny, nx), jnp.float32),
-                    jnp.ones((ny, nx), bool))
-        return derived_fields_fused(
-            tki, qi, ui, vi, ps1,
-            jnp.asarray(plevels, jnp.float32), jnp.zeros(np_, jnp.float32),
-            xmapr, ymapr, fcoriolis,
-            interpret=jax.devices()[0].platform != "tpu",
-            global_shape=global_shape, stacked=stacked)
     # constant-pressure "field" per target level; defined everywhere
     pvals = jnp.asarray(plevels, jnp.float32).reshape(np_, 1, 1)
     p = Field(jnp.broadcast_to(pvals, tki.values.shape),

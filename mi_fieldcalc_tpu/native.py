@@ -1,6 +1,6 @@
 """ctypes bindings for the native host boundary codec.
 
-The compute path of this framework is JAX/Pallas on TPU; what remains
+The compute path of this framework is JAX on the accelerator; what remains
 host-side work is the numpy *boundary* — turning sentinel-encoded grids
 (``miutil::UNDEF = 1e35``, reference FieldDefined.cc:34) into
 ``(values, mask)`` pairs before ``device_put``, re-encoding device results,

@@ -1,6 +1,6 @@
 """Operator suite: every derived-field calculation of the reference library
 (mi-fieldcalc FieldCalculations.h:113-304), re-designed as fused, mask-aware
-JAX/Pallas kernels over batched [..., ny, nx] grids."""
+JAX programs over batched [..., ny, nx] grids."""
 
 from .levels import (  # noqa: F401
     pleveltemp, plevelthe, plevelhum, pleveldz2tmean, plevelducting,
@@ -34,14 +34,8 @@ from .icing import (  # noqa: F401
     vessel_icing_overland, vessel_icing_mertins, vessel_icing_modstall,
     vessel_icing_mincog,
 )
-from .icing_fused import (  # noqa: F401
-    vessel_icing_mincog_fused, vessel_icing_modstall_fused,
-)
 from .vertical import (  # noqa: F401
     plevel_interp, hlevel_to_plevel,
-)
-from .vertical_fused import (  # noqa: F401
-    hlevel_to_plevel_fused,
 )
 from .fused_suite import (  # noqa: F401
     alevel_suite_fused, hlevel_suite_fused,

@@ -2,7 +2,7 @@
 
 The reference library signals invalid *parameters* by returning ``false``
 from every operator (e.g. FieldCalculations.cc:419, 477).  Parameters are
-static Python values here, so the TPU-native equivalent is a trace-time
+static Python values here, so the equivalent is a trace-time
 :class:`ValueError` raised by :func:`require`; the drop-in compat layer
 (:mod:`mi_fieldcalc_tpu.api`) converts that back into the reference's
 ``None`` / ``False`` convention.

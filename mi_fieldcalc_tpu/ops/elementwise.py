@@ -7,7 +7,7 @@ unary math fields (2531-2563), replaceUndefined/replaceDefined (2565-2608),
 fieldOPERfield / fieldOPERconstant / constantOPERfield (2611-2669),
 snow_in_cm (3063).
 
-All of these are single fused mask-elementwise kernels on TPU; the
+All of these are single fused mask-elementwise programs; the
 reference's per-point ``is_defined`` branch plus OpenMP reduction collapses
 into vector-lane selects.
 """

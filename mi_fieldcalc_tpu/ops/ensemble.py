@@ -4,7 +4,7 @@ Reference: FieldCalculations.cc — sumFields (2671), meanValue (2696),
 stddevValue (2726), extremeValue (2759), probability (2807).
 
 Members are stacked on a leading axis (``member`` first), so every
-reduction is a masked reduce along axis 0 — the TPU-native form of the
+reduction is a masked reduce along axis 0 — the vectorized form of the
 reference's per-point member loops.
 """
 

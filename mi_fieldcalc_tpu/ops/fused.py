@@ -1,1006 +1,342 @@
-"""Single-pass Pallas TPU kernel for the flagship derived-field pipeline.
+"""Single-pass GPU kernel for the derived-field pipeline (Pallas, Triton
+route).
 
-:func:`mi_fieldcalc_tpu.models.derived_fields` composes 12 operators; under
-XLA each output becomes its own fusion (66 fusions total), so the hot
-inputs are re-read from HBM once per consumer — ~15.6 GB of traffic per
-step where the intrinsic requirement (every input read once, every output
-written once) is ~1.9 GB.  This module computes all 12 outputs in ONE
-``pallas_call`` pass over (level, y-tile) blocks, holding a tile of every
-input in VMEM and streaming out all 24 result arrays (12 values + 12
-masks), which removes the redundant traffic entirely.
+:func:`mi_fieldcalc_tpu.models.derived_fields` composes 12 operators
+over 5 input fields.  This kernel computes all 12 outputs in one pass:
+each program owns one ``(level, y-tile, x-tile)`` block, gathers its
+inputs at the coordinates it needs (stencil neighbours up to two rows or
+columns away are further loads of the same cache lines), and writes every
+output plane once.  Nothing is carried from one program to the next.
 
-Design notes (see /opt/skills/guides/pallas_guide.md):
+Formulas are not restated here.  The pointwise outputs trace the ops of
+ops/levels.py and ops/elementwise.py on the loaded tiles; the five
+stencil outputs trace the ``*_core`` functions of ops/stencil.py through
+a neighbour accessor whose ``nb(a, dy, dx)`` is a load at shifted
+coordinates.
 
-* Grid ``(y_tiles, nlev)`` — levels innermost so the 2-D inputs
-  (surface pressure, map factors) keep the same block across consecutive
-  steps and are not re-fetched per level.
-* y-stencil halos: the centered differences need rows ``y±1`` and the
-  thermal-front parameter composes to ``y±2`` through the |grad T|
-  intermediate.  Instead of overlapping blocks (unsupported), each
-  stencil input is passed three times — the center ``(1, TY, nx)`` block
-  plus 8-row blocks of the previous/next row-chunks — and the kernel
-  concatenates the 2 boundary rows of each into a ``TY+4``-row extended
-  tile.  Halo overhead is 16/TY of the ideal traffic instead of 2x.
-* x-stencils need no halo: a block spans the full x extent and neighbor
-  values are single-lane rotations (``pltpu.roll``).  The wrapped lanes
-  land exactly on the columns that ``fillEdges``
-  (FieldCalculations.cc:59-74) overwrites.
-* ``fillEdges`` parity: column 0/nx-1 and row 0/ny-1 of the *physical*
-  domain are patched via iota-masked selects against rolled copies, in
-  the reference's order (columns first, then full rows).  The |grad T|
-  intermediate is patched the same way before the second stencil reads
-  it, exactly like the reference's ``gradient()`` output
-  (FieldCalculations.cc:2281-2302).
-* The 41-entry saturation-vapor table (MetConstants.h:56-59) lives in
-  VMEM padded to 128 lanes; lookups are Mosaic lane-gathers
-  (``take_along_axis`` on 128-wide chunks) — bit-exact table values at
-  ~1 VPU op per point instead of a 40-select chain.
-* The tri-state/undef semantics ride along as bool mask lanes and are
-  identical to the jnp ops (same formulas, same quirks — e.g. the
-  ``alevelhum`` sentinel-pressure gate, FieldCalculations.cc:1438).
+fillEdges (FieldCalculations.cc:59-74) is an index map: after the
+reference's column-then-row copies, the output at ``(y, x)`` is the raw
+value at ``(clamp(y), clamp(x))``, where clamp sends the physical first
+and last row (column) to its inner neighbour.  The kernel evaluates each
+stencil output at the clamped coordinates, and the edge-filled |grad T|
+that TFP differentiates the same way at each neighbour.  Clamping uses
+GLOBAL coordinates, so a shard (parallel/fused.py) fills only at physical
+domain edges, never at seams.  Ragged grids need no padding: loads are
+clipped into the array and stores are masked.
 
-The kernel is numerically equivalent to the jnp path (values to f32
-round-off under reassociation, masks bit-for-bit); ``tests/test_fused.py``
-checks both on every op, with undefs, in interpret mode on CPU.
+Output layout (:class:`..models.pipeline.DerivedFieldsStacked`): one
+``(12, nlev, ny, nx)`` float32 value stack and one int8 mask stack —
+the 9 deduplicated planes (``MASK9``), or on the ``all_defined`` path the
+2 data-dependent gate planes (``MASK2``).  ``native.encode_trim_batch``
+consumes both as they are.
+
+``tests/test_fused.py`` checks the kernel against the jnp pipeline in the
+Pallas interpreter (masks bit for bit, values to rtol 2e-5);
+``chip_smoke.py`` does the same compiled on the GPU.
 """
 
 from __future__ import annotations
 
 import functools
-import os
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ..constants import EWT, cp, eps, kappa, p0inv, rhmax, rhmin, t0, xlh
-from .._libm import pow_posc_f32 as _pow_posc_f32
-from ..field import Field, UNDEF
+from ..constants import EWT
+from ..field import Field
+from .elementwise import vectorabs
+from .levels import alevelducting, alevelhum, alevelthe, aleveltemp
+from .stencil import (advection_core, divergence_core, gradient_abs_core,
+                      relvort_core, tfp_core)
 
-__all__ = ["derived_fields_fused", "fused_supported"]
+__all__ = ["derived_fields_fused", "fused_supported", "DEFAULT_BLOCK"]
 
-_f32 = jnp.float32
-
-# temporary perf-lab switches (trace-time); all default off
-_V = lambda k: os.environ.get(k, "") == "1"
-
-#: EWT padded to one 128-lane register row (gather indices stay in 0..40).
-_TAB128 = np.zeros(128, np.float32)
-_TAB128[: EWT.size] = EWT
-
-
-# ---------------------------------------------------------------------------
-# in-kernel helpers
-# ---------------------------------------------------------------------------
-
-def _roll(a, shift, axis):
-    """``pltpu.roll`` that tolerates bool arrays (Mosaic can only rotate
-    32-bit data; masks ride through int32)."""
-    if a.dtype == jnp.bool_:
-        return pltpu.roll(a.astype(jnp.int32), shift, axis=axis) != 0
-    return pltpu.roll(a, shift, axis=axis)
+#: (rows, columns) of one program's output tile (powers of two) and warps
+#: per program: the fastest of a sweep on an H100 at 32x719x929 (PERF.md;
+#: two points per thread keep the many live tiles in registers).
+DEFAULT_BLOCK = (2, 256)
+DEFAULT_WARPS = 4
 
 
-def _xshift(a, d):
-    """Value at (y, x+d) via lane rotation; wrapped lanes are physical-edge
-    columns that fill_edges overwrites."""
-    nx = a.shape[-1]
-    return _roll(a, (-d) % nx, axis=a.ndim - 1)
+class _Geom(NamedTuple):
+    nlev: int          # levels in the input stacks
+    ny: int            # local input block rows
+    nx: int            # local input block columns
+    ny_o: int          # output rows
+    nx_o: int          # output columns
+    oy: int            # output row 0 sits at input-local row oy
+    ox: int            # output column 0 sits at input-local column ox
+    nyg: int           # global logical rows (fill edges)
+    nxg: int           # global logical columns
+    maps3d: bool       # map factors given per level
+    all_defined: bool  # masks not read; 2 gate planes written
+    by: int
+    bx: int
 
 
-def _lookup(tab_ref, idx):
-    """Bit-exact ``EWT[idx]`` for ``idx`` in [0, 40] via 128-lane chunked
-    Mosaic gathers (wider gathers are unsupported)."""
-    if _V("MF_FUSED_CHAIN_LOOKUP"):
-        out = jnp.full(idx.shape, EWT[0], jnp.float32)
-        for k in range(1, EWT.size):
-            out = jnp.where(idx >= k, EWT[k], out)
-        return out
-    rows, nx = idx.shape
-    tab = jnp.broadcast_to(tab_ref[...].reshape(1, 128), (rows, 128))
-    if nx <= 128:
-        pad = jnp.zeros((rows, 128 - nx), idx.dtype) if nx < 128 else None
-        ix = idx if pad is None else jnp.concatenate([idx, pad], axis=1)
-        return jnp.take_along_axis(tab, ix, axis=1)[:, :nx]
-    parts = []
-    for c in range(nx // 128):
-        parts.append(jnp.take_along_axis(tab, idx[:, c * 128:(c + 1) * 128],
-                                         axis=1))
-    out = jnp.concatenate(parts, axis=1) if len(parts) > 1 else parts[0]
-    done = (nx // 128) * 128
-    if done < nx:
-        # ragged tail: gather an overlapping full-width window
-        tail = jnp.take_along_axis(tab, idx[:, nx - 128:], axis=1)
-        out = jnp.concatenate([out, tail[:, 128 - (nx - done):]], axis=1)
-    return out
+class _Tile:
+    """Coordinates at which an expression is evaluated: global rows
+    ``Y`` (shape ``(by, 1)``) and columns ``X`` (``(1, bx)``), with a
+    hashable ``key`` naming how they were derived (loads are memoised per
+    key, so a neighbour read twice is loaded once)."""
+
+    def __init__(self, st, Y, X, key):
+        self.st, self.Y, self.X, self.key = st, Y, X, key
+
+    def shift(self, dy, dx):
+        return _Tile(self.st, self.Y + dy, self.X + dx,
+                     self.key + ((dy, dx),))
+
+    def filled(self):
+        g = self.st.g
+        return _Tile(self.st, jnp.clip(self.Y, 1, g.nyg - 2),
+                     jnp.clip(self.X, 1, g.nxg - 2), self.key + ("f",))
+
+    def nb(self, h, dy=0, dx=0):
+        return h.at(self, dy, dx)
 
 
-def _colfix(a, cx0, nxg, full_x=False):
-    """fillEdges column patch at *physical* columns 0 / nxg-1; ``cx0`` is
-    the global x of lane 0 (0 single-device; a traced shard offset when
-    sharded).  ``full_x`` (static) means the tile spans the whole global
-    x-range, so the fill sources are the static lanes 1 / nxg-2 —
-    broadcast of a static slice instead of two full-tile lane rotations."""
-    c = jax.lax.broadcasted_iota(jnp.int32, a.shape, a.ndim - 1) + cx0
-    if full_x and not _V("MF_FUSED_DYN_EDGES"):
-        left = jnp.broadcast_to(a[..., 1:2], a.shape)
-        right = jnp.broadcast_to(a[..., nxg - 2:nxg - 1], a.shape)
+class _State:
+    """Per-program geometry, the global offsets of local element (0, 0),
+    and the load memo."""
+
+    def __init__(self, g, row0, col0):
+        self.g, self.row0, self.col0 = g, row0, col0
+        self.memo = {}
+
+
+class _Load:
+    """An input array read at a tile's coordinates (clipped into the
+    local block; clipped lanes are never stored)."""
+
+    def __init__(self, ref, plane, mask=False):
+        self.ref, self.plane, self.mask = ref, plane, mask
+
+    def at(self, t, dy, dx):
+        key = (id(self), t.key, dy, dx)
+        st = t.st
+        if key not in st.memo:
+            g = st.g
+            ly = jnp.clip(t.Y + (dy - st.row0), 0, g.ny - 1)
+            lx = jnp.clip(t.X + (dx - st.col0), 0, g.nx - 1)
+            val = plgpu.load(self.ref.at[self.plane * (g.ny * g.nx)
+                                         + ly * g.nx + lx])
+            st.memo[key] = (val != 0) if self.mask else val
+        return st.memo[key]
+
+
+class _Ones:
+    """Constant-True mask (the all_defined path reads no masks)."""
+
+    def at(self, t, dy, dx):
+        return jnp.ones((t.st.g.by, t.st.g.bx), jnp.bool_)
+
+
+class _FilledAbsGrad:
+    """The edge-filled |grad T| intermediate of TFP, evaluated on demand
+    at a neighbour's filled coordinates; element 0 = values, 1 = mask."""
+
+    def __init__(self, tk, tkm, xm, ym):
+        self.args = (tk, tkm, xm, ym)
+        self.parts = (_Part(self, 0), _Part(self, 1))
+
+    def pair(self, t):
+        key = (id(self), t.key)
+        if key not in t.st.memo:
+            t.st.memo[key] = gradient_abs_core(t.nb, *self.args)
+        return t.st.memo[key]
+
+
+class _Part:
+    def __init__(self, src, i):
+        self.src, self.i = src, i
+
+    def at(self, t, dy, dx):
+        return self.src.pair(t.shift(dy, dx).filled())[self.i]
+
+
+def _kernel(off_ref, alev_ref, blev_ref, tab_ref, *refs, g: _Geom):
+    """The saturation table is gathered from device memory (2 loads per
+    lookup instead of the jnp path's 40-step select chain), and the
+    masked path traces masks and values in two passes so each pass keeps
+    only its own tiles live — both measured faster on the H100
+    (PERF.md)."""
+    from ..constants import EWT_PAIR_LOOKUP
+    tok = EWT_PAIR_LOOKUP.set(lambda ls: (plgpu.load(tab_ref.at[ls]),
+                                          plgpu.load(tab_ref.at[ls + 1])))
+    try:
+        if g.all_defined:
+            _pass(off_ref, alev_ref, blev_ref, refs, g, ("masks", "values"))
+        else:
+            _pass(off_ref, alev_ref, blev_ref, refs, g, ("masks",))
+            _pass(off_ref, alev_ref, blev_ref, refs, g, ("values",))
+    finally:
+        EWT_PAIR_LOOKUP.reset(tok)
+
+
+def _pass(off_ref, alev_ref, blev_ref, refs, g, what):
+    if g.all_defined:
+        (tk_r, q_r, u_r, v_r, ps_r, xm_r, ym_r, ov_ref, om_ref) = refs
     else:
-        left, right = _xshift(a, 1), _xshift(a, -1)
-    a = jnp.where(c == 0, left, a)
-    return jnp.where(c == nxg - 1, right, a)
+        (tk_r, q_r, u_r, v_r, ps_r, tkm_r, qm_r, um_r, vm_r, psm_r,
+         xm_r, ym_r, ov_ref, om_ref) = refs
+    lev = pl.program_id(0)
+    j = pl.program_id(1)
+    i = pl.program_id(2)
+    st = _State(g, off_ref[0], off_ref[1])
 
+    r = j * g.by + jnp.arange(g.by, dtype=jnp.int32)      # output rows
+    c = i * g.bx + jnp.arange(g.bx, dtype=jnp.int32)      # output cols
+    inb = (r[:, None] < g.ny_o) & (c[None, :] < g.nx_o)
+    gy = (r + (g.oy + st.row0))[:, None]                   # global
+    gx = (c + (g.ox + st.col0))[None, :]
+    here = _Tile(st, gy, gx, ())
 
-def _rowfix(a, gy0, nyg):
-    """fillEdges row patch at *physical* rows 0 / nyg-1 (global row of the
-    tile's first sublane is ``gy0``)."""
-    rows = a.shape[0]
-    r = jax.lax.broadcasted_iota(jnp.int32, a.shape, 0) + gy0
-    if _V("MF_FUSED_DYN_EDGES"):
-        dn = _roll(a, rows - 1, axis=0)   # row k <- row k+1
-        up = _roll(a, 1, axis=0)          # row k <- row k-1
+    mplane = lev if g.maps3d else 0
+    tk, q, u, v = (_Load(rf, lev) for rf in (tk_r, q_r, u_r, v_r))
+    ps = _Load(ps_r, 0)
+    xm, ym = _Load(xm_r, mplane), _Load(ym_r, mplane)
+    if g.all_defined:
+        tkm = qm = um = vm = psm = _Ones()
     else:
-        # static-slice shifts: no rotation, no i32 round trip for masks
-        dn = jnp.concatenate([a[1:], a[rows - 1:]], axis=0)
-        up = jnp.concatenate([a[:1], a[:rows - 1]], axis=0)
-    a = jnp.where(r == 0, dn, a)
-    return jnp.where(r == nyg - 1, up, a)
+        tkm, qm, um, vm = (_Load(rf, lev, mask=True)
+                           for rf in (tkm_r, qm_r, um_r, vm_r))
+        psm = _Load(psm_r, 0, mask=True)
 
+    def put_v(k, val):
+        if "values" not in what:
+            return
+        plgpu.store(ov_ref.at[k, lev, pl.ds(j * g.by, g.by),
+                              pl.ds(i * g.bx, g.bx)], val, mask=inb)
 
-def _fill(a, gy0, nyg, cx0, nxg, full_x=False):
-    if _V("MF_FUSED_NO_FILLS"):
-        return a
-    return _rowfix(_colfix(a, cx0, nxg, full_x), gy0, nyg)
+    def put_m(k, m):
+        if "masks" not in what:
+            return
+        m = jnp.broadcast_to(m, (g.by, g.bx)).astype(jnp.int8)
+        plgpu.store(om_ref.at[k, lev, pl.ds(j * g.by, g.by),
+                              pl.ds(i * g.bx, g.bx)], m, mask=inb)
 
+    # ---- pointwise outputs at (y, x): the levels.py / elementwise ops
+    nb = here.nb
+    tkf, qf = Field(nb(tk), nb(tkm)), Field(nb(q), nb(qm))
+    uf, vf = Field(nb(u), nb(um)), Field(nb(v), nb(vm))
+    p = Field(alev_ref[lev] + blev_ref[lev] * nb(ps), nb(psm))
+    th = aleveltemp(tkf, p, compute=3)
+    rh = alevelhum(tkf, qf, p, compute=1)
+    td = alevelhum(tkf, qf, p, compute=9)
+    the = alevelthe(tkf, qf, p, compute=1)
+    duc = alevelducting(tkf, qf, p, compute=1)
+    ws = vectorabs(uf, vf)
+    for k, f in enumerate((p, th, rh, td, the, duc, ws)):
+        put_v(k, jnp.broadcast_to(f.values, (g.by, g.bx)))
 
-def put_ref(ref, v):
-    """Store ``v`` into an output ref, coercing mask data (int32/bool
-    lanes in-kernel) to the ref's boundary dtype (bool, or int8 when the
-    wrapper routes masks as int8 to avoid the i1->i32 DMA blowup)."""
-    if ref.dtype == v.dtype:
-        ref[0] = v
-    elif ref.dtype == jnp.bool_:
-        ref[0] = v != 0
+    # ---- stencil outputs at the filled coordinates: the stencil.py cores
+    nbf = here.filled().nb
+    vo = relvort_core(nbf, u, um, v, vm, xm, ym)
+    dv = divergence_core(nbf, u, um, v, vm, xm, ym)
+    ad = advection_core(nbf, tk, tkm, u, um, v, vm, xm, ym, 1.0)
+    agrad = _FilledAbsGrad(tk, tkm, xm, ym)
+    gt = nbf(agrad.parts[0]), nbf(agrad.parts[1])
+    tf = tfp_core(nbf, tk, tkm, *agrad.parts, xm, ym)
+    for k, (val, _) in enumerate((vo, dv, ad, gt, tf), start=7):
+        put_v(k, val)
+
+    if g.all_defined:
+        # only the humidity table gate and TFP's |grad T| != 0 gate
+        # depend on the data when every input is defined
+        put_m(0, rh.mask)
+        put_m(1, tf[1])
     else:
-        ref[0] = (v != 0).astype(ref.dtype)
-
-
-def _edge_store(ref, value, gy0, cx0, nyg, nxg, TY, full_x):
-    """Write output block ``value`` with fillEdges applied: columns via a
-    full-tile select (Mosaic cannot address single lanes dynamically),
-    rows via 2 conditional dynamic-row stores — the physical row patch
-    then costs ~2 row copies instead of a roll + select across every lane
-    of every block.  Columns first, then rows (the row copy picks up the
-    fixed corners), the reference's order (FieldCalculations.cc:59-74).
-    Conditions are global-coordinate predicates, so on sharded runs
-    interior blocks patch nothing and seams stay untouched."""
-    def put(v):
-        put_ref(ref, v)
-
-    if _V("MF_FUSED_NO_FILLS"):
-        put(value)
-        return
-    if ref.dtype == jnp.int8:
-        # i8 tiling cannot prove dynamic row offsets; use the full-tile
-        # shift+select row patch instead of the 2 conditional row stores
-        put(_fill(value, gy0, nyg, cx0, nxg, full_x))
-        return
-    put(_colfix(value, cx0, nxg, full_x))
-
-    @pl.when((gy0 <= 0) & (gy0 + TY > 0))
-    def _():
-        i = -gy0                     # local row of global row 0
-        ref[0, pl.ds(i, 1), :] = ref[0, pl.ds(i + 1, 1), :]
-
-    @pl.when((gy0 <= nyg - 1) & (gy0 + TY > nyg - 1))
-    def _():
-        i = (nyg - 1) - gy0          # local row of global row nyg-1
-        ref[0, pl.ds(i, 1), :] = ref[0, pl.ds(i - 1, 1), :]
-
-
-def _esat(tab_ref, tk):
-    """Table-coordinate saturation vapor pressure (MetConstants.h:61-84);
-    returns (et, ok, x, l) like :func:`..ops.thermo.esat_table`."""
-    x = (tk - t0 + _f32(100.0)) * _f32(0.2)
-    l = jnp.trunc(x).astype(jnp.int32)
-    ls = jnp.clip(l, 0, 39)
-    e0 = _lookup(tab_ref, ls)
-    e1 = _lookup(tab_ref, ls + 1)
-    et = e0 + (e1 - e0) * (x - ls.astype(_f32))
-    ok = (l >= 0) & (l < 40)
-    return et, ok, l
-
-
-def _ewt_inverse(tab_ref, et, l):
-    """Monotone-table inverse (MetConstants.cc:37-45), vectorized."""
-    cnt = jnp.zeros(et.shape, jnp.int32)
-    for k in range(EWT.size):
-        cnt = cnt + (et >= EWT[k]).astype(jnp.int32)
-    ll = jnp.clip(cnt - 1, 0, jnp.clip(l, 0, 39))
-    e0 = _lookup(tab_ref, ll)
-    e1 = _lookup(tab_ref, ll + 1)
-    rr = (et - e0) / (e1 - e0)
-    return _f32(-100.0) + (ll.astype(_f32) + rr) * _f32(5.0)
-
-
-# ---------------------------------------------------------------------------
-# the kernel
-# ---------------------------------------------------------------------------
-
-class _StackedSlot:
-    """Adapter presenting plane ``v`` of a stacked ``(12, 1, TY, nx)``
-    output block through the same ``ref[0] = ...`` interface the kernel
-    uses for per-field output refs, so one kernel body serves both output
-    layouts."""
-
-    def __init__(self, ref, v):
-        self._ref, self._v = ref, v
-
-    @property
-    def dtype(self):
-        return self._ref.dtype
-
-    def _at(self, idx):
-        if isinstance(idx, tuple):
-            return (self._v, 0) + idx[1:]
-        assert idx == 0
-        return (self._v, 0)
-
-    def __setitem__(self, idx, val):
-        self._ref[self._at(idx)] = val
-
-    def __getitem__(self, idx):
-        return self._ref[self._at(idx)]
-
-
-class _PackedBit:
-    """Accumulates one mask plane as bit ``k`` of the packed int32
-    stacked-mask output (``stacked == "packed"``; written once at kernel
-    end).  ``dtype = int8`` routes :func:`_edge_store` through its
-    full-tile fill path, so every store lands here as one whole tile."""
-    dtype = jnp.int8
-
-    def __init__(self, acc, bit):
-        self._acc, self._bit = acc, bit
-
-    def __setitem__(self, idx, val):
-        self._acc[self._bit] = (val != 0).astype(jnp.int32)
-
-
-def _flush_packed(acc, om_ref):
-    """One int32 bit-plane write instead of 12 int8 mask planes (the
-    kernel is DMA-byte-bound, PERF.md)."""
-    packed = acc[0]
-    for k in range(1, 12):
-        packed = packed | (acc[k] << k)
-    om_ref[0] = packed
-
-
-class _LevBit:
-    """Mask slot for the LEV-packed stacked layout: plane ``k`` of the
-    ``(nmp, TY, nx)`` int32 output block accumulates bit ``lev`` across
-    the 32 innermost lev grid steps (the block index map ignores lev, so
-    the block stays VMEM-resident and is written back ONCE per y-tile —
-    zero per-step mask stores, unlike the measured field-packed dead
-    end which still wrote every step).  ``dtype = int8`` routes
-    :func:`_edge_store` through its full-tile fill path, so every store
-    lands here as one whole tile."""
-    dtype = jnp.int8
-
-    def __init__(self, ref, k, lev):
-        self._ref, self._k, self._lev = ref, k, lev
-
-    def __setitem__(self, idx, val):
-        bit = (val != 0).astype(jnp.int32) << self._lev
-        old = self._ref[self._k]
-        self._ref[self._k] = jnp.where(self._lev == 0, bit, old | bit)
-
-
-def _kernel(ny, nx, TY, nlev, nyg, nxg, full_x, stacked, part, allm, *refs):
-    """Kernel body for all three layouts: ``part`` = "all" (monolith),
-    "elementwise" (no halos, no stencils - bigger row tiles), or
-    "stencil" (halo blocks + the 5 derivative outputs).  The split
-    halves the DMA-descriptor count per step, which is what bounds this
-    kernel on v5e (~0.65 us per buffer per grid step; see PERF.md).
-
-    ``allm`` is the ALL_DEFINED fast path (the reference's
-    ``inAllDefined`` shortcut, FieldCalculations.cc:100): no mask planes
-    enter the kernel, and of the outputs only the humidity gate ``ok``
-    (the ewt table-range predicate, MetConstants.h:69 — data-dependent
-    even on fully defined inputs) is written; every other output mask is
-    constant True."""
-    alev_ref, blev_ref, off_ref = refs[:3]
-    r = refs[3:]
-    tkm_c = tkm_p = tkm_n = um_c = um_p = um_n = vm_c = qm_c = psm = None
-    if part == "all":
-        if allm:
-            (tk_c, tk_p, tk_n, u_c, u_p, u_n, v_c, v_p, v_n, q_c,
-             ps, xm_c, xm_p, xm_n, ym_c, ym_p, ym_n, tab_ref) = r[:18]
-            out_refs = r[18:]
-        else:
-            (tk_c, tk_p, tk_n, u_c, u_p, u_n, v_c, v_p, v_n, q_c,
-             tkm_c, tkm_p, tkm_n, um_c, um_p, um_n, vm_c, qm_c,
-             ps, psm, xm_c, xm_p, xm_n, ym_c, ym_p, ym_n, tab_ref) = r[:27]
-            out_refs = r[27:]
-    elif part == "elementwise":
-        if allm:
-            (tk_c, u_c, v_c, q_c, ps, tab_ref) = r[:6]
-            out_refs = r[6:]
-        else:
-            (tk_c, u_c, v_c, q_c, tkm_c, um_c, vm_c, qm_c, ps, psm,
-             tab_ref) = r[:11]
-            out_refs = r[11:]
-    else:   # "stencil"
-        if allm:
-            (tk_c, tk_p, tk_n, u_c, u_p, u_n, v_c, v_p, v_n,
-             xm_c, xm_p, xm_n, ym_c, ym_p, ym_n) = r[:15]
-            out_refs = r[15:]
-        else:
-            (tk_c, tk_p, tk_n, u_c, u_p, u_n, v_c, v_p, v_n,
-             tkm_c, tkm_p, tkm_n, um_c, um_p, um_n, vm_c,
-             xm_c, xm_p, xm_n, ym_c, ym_p, ym_n) = r[:22]
-            out_refs = r[22:]
-
-    o_p = o_vo = None
-    m_p = m_th = m_rh = m_td = m_the = m_duc = m_ws = None
-    m_vo = m_dv = m_ad = m_gt = m_tf = None
-    acc = None
-    if stacked and allm:
-        ov_ref, om_ref = out_refs
-        (o_p, o_th, o_rh, o_td, o_the, o_duc, o_ws, o_vo, o_dv, o_ad,
-         o_gt, o_tf) = [_StackedSlot(ov_ref, k) for k in range(12)]
-        # 2 data-dependent mask planes survive the fast path: the
-        # humidity table gate (rh/td) and TFP's |grad T| != 0 gate
-        m_rh = _StackedSlot(om_ref, 0)
-        m_tf = _StackedSlot(om_ref, 1)
-    elif stacked:
-        ov_ref, om_ref = out_refs
-        (o_p, o_th, o_rh, o_td, o_the, o_duc, o_ws, o_vo, o_dv, o_ad,
-         o_gt, o_tf) = [_StackedSlot(ov_ref, k) for k in range(12)]
-        if stacked == "packed":
-            acc = [None] * 12
-            mslots = [_PackedBit(acc, k) for k in range(12)]
-            (m_p, m_th, m_rh, m_td, m_the, m_duc, m_ws, m_vo, m_dv, m_ad,
-             m_gt, m_tf) = mslots
-        elif stacked == "lev":
-            # LEV-packed masks: 9 deduplicated int32 bit-planes, bit =
-            # level, accumulated across the innermost lev grid steps
-            # and written once per y-tile
-            _lv = pl.program_id(1)
-            (m_p, m_th, m_rh, m_the, m_ws, m_vo, m_ad, m_gt, m_tf) = \
-                [_LevBit(om_ref, k, _lv) for k in range(9)]
-        elif stacked == "dedup9":
-            # 9 deduplicated mask planes (td/duc/dv share rh/the/vo, as
-            # in the non-stacked layout): 3 fewer int8 plane writes per
-            # step on a DMA-byte-bound kernel
-            (m_p, m_th, m_rh, m_the, m_ws, m_vo, m_ad, m_gt, m_tf) = \
-                [_StackedSlot(om_ref, k) for k in range(9)]
-        else:
-            mslots = [_StackedSlot(om_ref, k) for k in range(12)]
-            (m_p, m_th, m_rh, m_td, m_the, m_duc, m_ws, m_vo, m_dv, m_ad,
-             m_gt, m_tf) = mslots
-    elif part == "all":
-        if allm:
-            (o_p, o_th, o_rh, o_td, o_the, o_duc, o_ws, o_vo, o_dv, o_ad,
-             o_gt, o_tf, m_rh, m_tf) = out_refs
-        else:
-            (o_p, o_th, o_rh, o_td, o_the, o_duc, o_ws, o_vo, o_dv, o_ad,
-             o_gt, o_tf,
-             m_p, m_th, m_rh, m_the, m_ws, m_vo, m_ad, m_gt, m_tf) = out_refs
-    elif part == "elementwise":
-        if allm:
-            (o_p, o_th, o_rh, o_td, o_the, o_duc, o_ws, m_rh) = out_refs
-        else:
-            (o_p, o_th, o_rh, o_td, o_the, o_duc, o_ws,
-             m_p, m_th, m_rh, m_the, m_ws) = out_refs
-    else:
-        if allm:
-            (o_vo, o_dv, o_ad, o_gt, o_tf, m_tf) = out_refs
-        else:
-            (o_vo, o_dv, o_ad, o_gt, o_tf, m_vo, m_ad, m_gt, m_tf) = out_refs
-    j = pl.program_id(0)
-    lev = pl.program_id(1)
-    # global coordinates of this block's first row / first lane: offsets
-    # are (0, 0) single-device, or the shard's halo-adjusted position when
-    # the kernel runs per-shard inside shard_map
-    gy0 = off_ref[0] + j * TY
-    cx0 = off_ref[1]
-
-    region = None
-    if allm:
-        # the fast path writes only 2 mask planes; gate them to the
-        # logical region so padded dead rows/lanes keep the layout
-        # invariant (masks False on dead points) — free VPU work on a
-        # DMA-bound kernel
-        rr = jax.lax.broadcasted_iota(jnp.int32, (TY, nx), 0) + gy0
-        cc = jax.lax.broadcasted_iota(jnp.int32, (TY, nx), 1) + cx0
-        region = ((rr >= 0) & (rr < nyg) & (cc >= 0) & (cc < nxg)
-                  ).astype(jnp.int32)
-
-    def ext(center, prev8, next8):
-        """TY+4-row extended tile: rows gy0-2 .. gy0+TY+1."""
-        return jnp.concatenate(
-            [prev8[0, 6:8, :], center[0], next8[0, 0:2, :]], axis=0)
-
-    def ext2d(center, prev8, next8):
-        return jnp.concatenate(
-            [prev8[6:8, :], center, next8[0:2, :]], axis=0)
-
-    def _b(x):
-        # mask lanes ride as int32: Mosaic cannot rotate/select i1 vectors
-        return x.astype(jnp.int32)
-
-    levmask = stacked == "lev"
-
-    def _mx(ref2d):
-        # LEV-packed input mask: 2-D int32 plane, bit `lev` = this
-        # level's mask.  The plane's block index ignores lev, so it is
-        # DMA'd once per y-tile; extraction is one VPU shift+and
-        return (ref2d[...] >> lev) & 1
-
-    tkv = tk_c[0]
-    uv, vv = u_c[0], v_c[0]
-    if not allm:
-        if levmask:
-            tkm, um, vm = _mx(tkm_c), _mx(um_c), _mx(vm_c)
-        else:
-            tkm, um, vm = _b(tkm_c[0]), _b(um_c[0]), _b(vm_c[0])
-
-    if o_p is not None:
-        # ---- elementwise family (levels.py formulas) ----------------------
-        qv = q_c[0]
-        psv = ps[...]
-        if not allm:
-            qm = _mx(qm_c) if levmask else _b(qm_c[0])
-            psvm = _b(psm[...])
-        a = alev_ref[lev]
-        b = blev_ref[lev]
-        p_raw = a + b * psv
-        o_p[0] = p_raw
-        if not allm:
-            put_ref(m_p, psvm)
-
-        # Round-5 tier-split close (VERDICT r4 item 4): the kernel runs
-        # the SAME narrow-domain deterministic pow as the op surface's
-        # pidcp_from_p (_libm.pow_posc_f32: <=~1.2 ulp on the Exner
-        # domain, mul/add/bitcast only — Mosaic and XLA lower it to
-        # identical arithmetic), so jnp path and kernel are bitwise
-        # equal on pow-using ops again.  Unlike round 4's rejected
-        # exp_f32(c*log_f32(x)) sync (a measured 9% step cost — that
-        # composition evaluates log's subnormal jnp.log fallback, the
-        # edge selects, AND a jnp.power fallback branch on every lane),
-        # the exact-integer-split base-2 reduction is cheap enough for
-        # this DMA-bound kernel; the measured cost is recorded in
-        # PERF.md "In-kernel pow".  MF_KERNEL_POW_HW=1 restores the
-        # round-4 hardware pow (perf A/B only: breaks the bitwise tie,
-        # stays inside the rtol 2e-5 fused-vs-jnp contract).
-        if _V("MF_KERNEL_POW_HW"):
-            pidcp = jnp.power(p_raw * p0inv, kappa)
-        else:
-            pidcp = _pow_posc_f32(p_raw * p0inv, kappa)
-        o_th[0] = tkv / pidcp
-        if not allm:
-            put_ref(m_th, tkm & psvm)
-
-        if _V("MF_FUSED_NO_THERMO"):
-            for o in (o_rh, o_td, o_the, o_duc):
-                o[0] = tkv / pidcp
-            for m in (m_rh, m_td, m_the, m_duc):
-                if m is not None:
-                    put_ref(m, region if allm else tkm & psvm)
-        else:
-            # alevelhum sentinel-pressure gate: with every input defined
-            # the gate is identity (p_raw == p_sent)
-            p_sent = (p_raw if allm
-                      else jnp.where(psvm != 0, p_raw, _f32(UNDEF)))
-            et, ok, l = _esat(tab_ref, tkv)
-            qsat = eps * et / p_sent
-            o_rh[0] = _f32(100.0) * qv / qsat
-            put_ref(m_rh, ok.astype(jnp.int32) & region if allm
-                    else (tkm & qm) * ok)
-
-            rhc = jnp.clip(qv / qsat, rhmin, rhmax)
-            if _V("MF_FUSED_NO_TD"):
-                o_td[0] = rhc
-            else:
-                o_td[0] = _ewt_inverse(tab_ref, rhc * et, l) + t0
-            if m_td is not None:        # else shares m_rh's plane
-                put_ref(m_td, (tkm & qm) * ok)
-
-            o_the[0] = (tkv * cp + qv * xlh) / (cp * pidcp)
-            if m_the is not None:
-                put_ref(m_the, tkm & qm & psvm)
-
-            o_duc[0] = (_f32(77.6) * (p_raw / tkv)
-                        + _f32(373000.0) * (qv * p_raw)
-                        / (eps * tkv * tkv))
-            if m_duc is not None:       # else shares m_the's plane
-                put_ref(m_duc, tkm & qm & psvm)
-
-        o_ws[0] = jnp.sqrt(uv * uv + vv * vv)
-        if m_ws is not None:
-            put_ref(m_ws, um & vm)
-
-    if o_vo is None:
-        return
-
-    # ---- radius-1 stencils (stencil.py formulas) --------------------------
-    tke, ue, ve = (ext(tk_c[...], tk_p[...], tk_n[...]),
-                   ext(u_c[...], u_p[...], u_n[...]),
-                   ext(v_c[...], v_p[...], v_n[...]))
-    if not allm:
-        if levmask:
-            tkme = (ext2d(tkm_c[...], tkm_p[...], tkm_n[...]) >> lev) & 1
-            ume = (ext2d(um_c[...], um_p[...], um_n[...]) >> lev) & 1
-        else:
-            tkme = ext(_b(tkm_c[...]), _b(tkm_p[...]), _b(tkm_n[...]))
-            ume = ext(_b(um_c[...]), _b(um_p[...]), _b(um_n[...]))
-    xme = ext2d(xm_c[...], xm_p[...], xm_n[...])
-    yme = ext2d(ym_c[...], ym_p[...], ym_n[...])
-    xmv, ymv = xm_c[...], ym_c[...]
-
-    # extended-tile row slices: index k of an "e" array is global row
-    # gy0-2+k; center rows are [2, TY+2).
-    def c_(e):   # center rows
-        return e[2:TY + 2]
-
-    def ym1(e):  # value at y-1 for center rows
-        return e[1:TY + 1]
-
-    def yp1(e):
-        return e[3:TY + 3]
-
-    if _V("MF_FUSED_NO_STENCILS"):
-        ws = jnp.sqrt(uv * uv + vv * vv)
-        for o in (o_vo, o_dv, o_ad, o_gt, o_tf):
-            o[0] = ws
-        for m in (m_vo, m_dv, m_ad, m_gt, m_tf):
-            if m is not None:
-                put_ref(m, region if allm else um & vm)
-        if acc is not None:
-            _flush_packed(acc, om_ref)
-        return
-
-    half = _f32(0.5)
-    vort = (half * xmv * (_xshift(c_(ve), 1) - _xshift(c_(ve), -1))
-            - half * ymv * (yp1(ue) - ym1(ue)))
-    dive = (half * xmv * (_xshift(c_(ue), 1) - _xshift(c_(ue), -1))
-            + half * ymv * (yp1(ve) - ym1(ve)))
-    adv = (uv * half * xmv * (_xshift(c_(tke), 1) - _xshift(c_(tke), -1))
-           + vv * half * ymv * (yp1(tke) - ym1(tke))) * _f32(-3600.0)
-    stores = [(o_vo, vort), (o_dv, dive), (o_ad, adv)]
-    if not allm:
-        vort_m = (_xshift(vm, -1) & _xshift(vm, 1) & ym1(ume) & yp1(ume))
-        adv_m = (um & vm & _xshift(tkm, -1) & _xshift(tkm, 1)
-                 & ym1(tkme) & yp1(tkme))
-        stores = [(o_vo, vort), (m_vo, vort_m), (o_dv, dive), (o_ad, adv),
-                  (m_ad, adv_m)]
-        if m_dv is not None:           # reference quirk: vort's inputs
-            stores.insert(3, (m_dv, vort_m))
-    for ref, val in stores:
-        _edge_store(ref, val, gy0, cx0, nyg, nxg, TY, full_x)
-
-    # ---- |grad T| on the TY+2-row window, then TFP ------------------------
-    # absd index k is global row gy0-1+k.
-    tcw = tke[1:TY + 3]       # rows gy0-1 .. gy0+TY
-    xmw, ymw = xme[1:TY + 3], yme[1:TY + 3]
-    dfdx = half * xmw * (_xshift(tcw, 1) - _xshift(tcw, -1))
-    dfdy = half * ymw * (tke[2:TY + 4] - tke[0:TY + 2])
-    absd = jnp.sqrt(dfdx * dfdx + dfdy * dfdy)
-    absd = _fill(absd, gy0 - 1, nyg, cx0, nxg, full_x)
-    if not allm:
-        absd_m = (_xshift(tkme[1:TY + 3], -1) & _xshift(tkme[1:TY + 3], 1)
-                  & tkme[0:TY + 2] & tkme[2:TY + 4])
-        absd_m = _fill(absd_m, gy0 - 1, nyg, cx0, nxg, full_x)
-
-    o_gt[0] = absd[1:TY + 1]
-    if m_gt is not None:
-        put_ref(m_gt, absd_m[1:TY + 1])
-
-    a_c = absd[1:TY + 1]
-    dadx = half * xmv * (_xshift(a_c, 1) - _xshift(a_c, -1))
-    dady = half * ymv * (absd[2:TY + 2] - absd[0:TY])
-    nonzero = a_c != 0
-    ainv = 1 / jnp.where(nonzero, a_c, _f32(1))
-    dtdxa = half * xmv * (_xshift(c_(tke), 1) - _xshift(c_(tke), -1)) * ainv
-    dtdya = half * ymv * (yp1(tke) - ym1(tke)) * ainv
-    tfp = -(dadx * dtdxa + dady * dtdya)
-    if allm:
-        # every input-mask term is constant True; only |grad T| != 0
-        # (the reference's division gate, FieldCalculations.cc:2293)
-        # survives, region-gated on padded dead points
-        tfp_m = nonzero.astype(jnp.int32) & region
-    else:
-        am_c = absd_m[1:TY + 1]
-        tfp_m = (ym1(tkme) & _xshift(tkm, 1) & _xshift(tkm, -1) & yp1(tkme)
-                 & absd_m[0:TY] & _xshift(am_c, 1) & am_c & _xshift(am_c, -1)
-                 & absd_m[2:TY + 2] & nonzero.astype(jnp.int32))
-    _edge_store(o_tf, tfp, gy0, cx0, nyg, nxg, TY, full_x)
-    _edge_store(m_tf, tfp_m, gy0, cx0, nyg, nxg, TY, full_x)
-
-    if acc is not None:
-        _flush_packed(acc, om_ref)
-
-
-# ---------------------------------------------------------------------------
-# host-side wrapper
-# ---------------------------------------------------------------------------
-
-#: largest known-good TY * nx row-lane product for the kernel's ~48
-#: double-buffered VMEM blocks: TY=48 at nx=1536 compiles on v5e (the
-#: config-5 AOT table, PERF.md) while TY=64 at nx=929 already exceeds
-#: scoped VMEM — TY must shrink as nx grows or wide grids fail to
-#: compile on a shape fused_supported() claimed to cover.
-_TY_LANE_BUDGET = 48 * 1536
-
-
-def _pick_ty(ny: int, nx: int, last_row: int = -1,
-             all_defined: bool = False) -> int:
-    """Row-tile height: multiple of 8, within the VMEM row-lane budget
-    for this ``nx``, with the row that receives the physical last-row
-    fill (``last_row``, default ny-1) NOT on a tile boundary so its
-    source row stays in the same tile."""
-    if last_row < 0:
-        last_row = ny - 1
-    # 48 first: the 8-row y-halo blocks cost 16/TY of the stencil-input
-    # traffic, and TY=48 measured 9% faster than 32 on the 719x929 grid
-    # (tools/perf_lab_ty.py; TY>=64 exceeds VMEM and fails to compile).
-    # The ALL_DEFINED fast path holds ~13 fewer VMEM blocks, so TY=72
-    # fits at nx <= 1024 (the lane budget gates wider grids) and
-    # measured 7% faster than 48 (median over 5 interleaved rounds);
-    # outputs validated bit-identical on the chip vs TY=48 and vs the
-    # masked path per the Mosaic big-tile miscompile caveat
-    # (memory/mosaic-limits).  TY=80+ exceeds scoped VMEM.
-    cands = (72, 48, 32, 40, 24, 16, 8) if all_defined \
-        else (48, 32, 40, 24, 16, 8)
-    for ty in cands:
-        if ty <= ny and last_row % ty != 0 \
-                and ty * max(nx, 128) <= _TY_LANE_BUDGET:
-            return ty
-    # small/awkward ny: one padded tile keeps every fill source local too
-    ty = -(-max(ny, 3) // 8) * 8
-    if ty * max(nx, 128) > _TY_LANE_BUDGET:
-        return 0
-    return ty if ty <= 48 else 0
+        for k, m in enumerate((p.mask, th.mask, rh.mask, the.mask, ws.mask,
+                               vo[1], ad[1], gt[1], tf[1])):
+            put_m(k, m)
 
 
 def fused_supported(ny: int, nx: int) -> bool:
-    """Whether the fused kernel covers this grid (ny/nx >= 3 as in the
-    reference; TY selectable within the VMEM budget)."""
-    return ny >= 3 and nx >= 3 and _pick_ty(ny, nx) > 0 and nx <= 9216
+    """Whether the kernel covers this grid (at least 3x3, as every
+    stencil of the reference requires)."""
+    return ny >= 3 and nx >= 3
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("interpret", "global_shape", "halo_rows",
-                                    "ty", "stacked", "mask8", "split",
-                                    "ty_ew", "packed_masks", "dedup_masks",
-                                    "all_defined", "levpack_masks"))
+@functools.partial(jax.jit, static_argnames=(
+    "interpret", "global_shape", "out_window", "stacked", "all_defined",
+    "block", "num_warps"))
 def derived_fields_fused(tk: Field, q: Field, u: Field, v: Field, ps: Field,
                          alevel, blevel, xmapr, ymapr, fcoriolis,
-                         interpret: bool = False,
-                         global_shape=None, grid_offsets=None,
-                         halo_rows: int = 2, ty: int | None = None,
-                         stacked: bool = False, mask8: bool = True,
-                         split: bool = False, ty_ew: int | None = None,
-                         packed_masks: bool = False,
-                         dedup_masks: bool = True,
-                         all_defined: bool = False,
-                         levpack_masks: bool = False,
-                         packed_input_masks=None):
-    """Fused single-pass equivalent of
-    :func:`mi_fieldcalc_tpu.models.derived_fields` (same signature, same
-    :class:`DerivedFields` result).
+                         interpret: bool = False, global_shape=None,
+                         grid_offsets=None, out_window=None,
+                         stacked: bool = False, all_defined: bool = False,
+                         block=DEFAULT_BLOCK, num_warps=DEFAULT_WARPS):
+    """Single-pass equivalent of
+    :func:`mi_fieldcalc_tpu.models.derived_fields` (same arguments, same
+    results).
 
-    For per-shard execution inside ``shard_map``: ``global_shape`` is the
-    static global ``(ny, nx)`` and ``grid_offsets`` the shard's traced
-    ``(row, col)`` position of local element (0, 0) in global coordinates
-    (negative at halo rows) — the physical-edge fills then fire only on
-    shards that actually touch the domain boundary.  ``halo_rows`` is how
-    many of the trailing local rows are halo (used only to keep the
-    bottom-shard fill-source row inside one tile); pass 0 for the
-    overlap path's unpadded interior block.
+    Returns a :class:`DerivedFieldsStacked` with ``stacked=True``, else a
+    :class:`DerivedFields` view of it.
 
-    For the canonical padded layout (layout.py): pass tile-aligned
-    inputs (masks ``False`` on dead rows/lanes) with ``global_shape``
-    set to the *logical* ``(ny, nx)`` and no ``grid_offsets`` — edge
-    fills fire at the logical boundary and outputs come back padded
-    (trim with ``layout.trim_field`` at the host boundary).  Ragged
-    grids take a ~2x DMA bandwidth penalty (tools/perf_lab_pad.py).
+    ``all_defined=True`` is the reference's ``inAllDefined`` shortcut
+    (FieldCalculations.cc:100): the caller asserts every input point is
+    defined, no mask is read, and only the 2 data-dependent mask planes
+    are written (the humidity table gate of rh/td, MetConstants.h:69, and
+    TFP's ``|grad T| != 0``, FieldCalculations.cc:2293).
 
-    ``split=True`` issues TWO pallas_calls instead of the monolith: an
-    elementwise kernel (no halo blocks → ``ty_ew`` rows/tile, no fill
-    constraint) and a stencil kernel.  Descriptor cost per output row
-    drops from 48/TY to 23/ty_ew + 31/TY; see PERF.md for measurements.
+    For a shard inside ``shard_map``: ``global_shape`` is the logical
+    ``(ny, nx)`` of the whole domain, ``grid_offsets`` the traced global
+    ``(row, col)`` of local element (0, 0), and ``out_window`` the static
+    ``(row0, col0, rows, cols)`` of the local block that is written out
+    (the rest is halo).
 
-    ``all_defined=True`` is the ALL_DEFINED fast path — the TPU analog
-    of the reference's ``inAllDefined`` shortcut at the top of every
-    operator (FieldCalculations.cc:100): the caller asserts every
-    *logical* input point is defined (padded-layout dead lanes are fine
-    — they are trimmed at the host boundary), input masks are ignored
-    (not even read), and only the 2 data-dependent output mask planes
-    are written: the humidity table gate (shared by rh/td,
-    MetConstants.h:69) and TFP's ``|grad T| != 0`` gate
-    (FieldCalculations.cc:2293).  The other 10 masks come back
-    constant-True.  On a DMA-byte-bound kernel dropping 5 input + 7
-    output mask planes is a ~15% step-time cut (PERF.md).  Values are
-    bit-identical to the default path on all-defined inputs.  The
-    staging layer auto-routes here when the decode counts prove every
-    input fully defined.
+    ``interpret=True`` runs the Pallas interpreter (CPU tests only).
     """
-    from ..models.pipeline import DerivedFields
+    from ..models.pipeline import DerivedFieldsStacked
 
+    del fcoriolis  # none of the 12 outputs uses it
     nlev, ny, nx = tk.values.shape
     nyg, nxg = global_shape if global_shape is not None else (ny, nx)
-    # local row that receives the "row nyg-1 <- nyg-2" fill: for a bottom
-    # shard, global nyg-1 sits `halo_rows` above the local end; for the
-    # canonical padded layout (global_shape logical, no offsets) it is
-    # simply logical row nyg-1
-    if global_shape is None:
-        last_local = ny - 1
-    elif grid_offsets is None:
-        last_local = nyg - 1
-    else:
-        last_local = ny - 1 - halo_rows
-    # static-lane fill sources are valid only when lane 0 IS global
-    # column 0 and the tile covers every logical lane — i.e. unsharded
-    # (possibly lane-padded) grids; sharded tiles have traced offsets
-    full_x = grid_offsets is None and nx >= nxg
-    TY = ty if ty is not None else _pick_ty(ny, nx, last_local,
-                                            all_defined)
-    if TY == 0:
-        raise ValueError("derived_fields_fused: unsupported grid size")
-    if ty is not None and (ty % 8 != 0 or last_local % ty == 0):
-        raise ValueError("derived_fields_fused: bad ty override")
-    if stacked and split:
-        raise ValueError("derived_fields_fused: stacked+split unsupported")
-    if all_defined and packed_masks:
-        raise ValueError("derived_fields_fused: all_defined+packed_masks "
-                         "unsupported (the fast path already writes only "
-                         "the 2 data-dependent planes)")
-    if levpack_masks and (not stacked or split or all_defined
-                          or packed_masks or nlev > 32):
-        raise ValueError("derived_fields_fused: levpack_masks requires "
-                         "stacked=True, no split/all_defined/packed_masks, "
-                         "and nlev <= 32")
-    # elementwise tile: no halos, no fills -> any multiple of 8
-    TY_E = ty_ew if ty_ew is not None else min(-(-ny // 8) * 8, 96)
-    if TY_E % 8 != 0 or TY_E <= 0:
-        raise ValueError("derived_fields_fused: bad ty_ew override")
+    oy, ox, ny_o, nx_o = out_window or (0, 0, ny, nx)
+    if not (fused_supported(nyg, nxg) and fused_supported(ny, nx)):
+        raise ValueError("derived_fields_fused: grid must be at least 3x3")
 
-    if all_defined:
-        tkm = um = vm = qm = psm = None      # masks never touch the device
-    elif levpack_masks:
-        # LEV-packed input masks: one (ny, nx) int32 plane per 3-D input,
-        # bit L = level L's mask.  The planes are lev-constant blocks —
-        # DMA'd once per y-tile instead of one int8 plane per lev step.
-        # Callers on the hot path pass them pre-packed (ingest-time,
-        # like padding); otherwise pack here at one extra mask-read pass.
-        if packed_input_masks is not None:
-            tkm, qm, um, vm = [jnp.asarray(m).view(jnp.int32)
-                               for m in packed_input_masks]
-        else:
-            sh = jnp.arange(nlev, dtype=jnp.int32)[:, None, None]
-            def _packm(m):
-                return (m.astype(jnp.int32) << sh).sum(0)
-            tkm, qm, um, vm = [_packm(m) for m in
-                               (tk.mask, q.mask, u.mask, v.mask)]
-        psm = (ps.mask.view(jnp.int8)
-               if not _V("MF_FUSED_MASK_CONVERT")
-               else ps.mask.astype(jnp.int8))
-    elif mask8:
-        # bitcast, not convert: XLA:TPU stores bool as one 0/1 byte, so the
-        # reinterpret is traffic-free where astype is a round trip per mask
-        # plane.  Measured a wash end-to-end on this backend (the small
-        # convert programs pipeline behind the kernel); kept for the fewer
-        # logical bytes.  MF_FUSED_MASK_CONVERT=1 restores astype for A/B.
-        cvt = ((lambda m: m.astype(jnp.int8)) if _V("MF_FUSED_MASK_CONVERT")
-               else (lambda m: m.view(jnp.int8)))
-        tkm, um, vm, qm, psm = [cvt(m) for m in
-                                (tk.mask, u.mask, v.mask, q.mask, ps.mask)]
-    else:
-        tkm, um, vm, qm, psm = tk.mask, u.mask, v.mask, q.mask, ps.mask
-    xm2 = jnp.broadcast_to(jnp.asarray(xmapr, jnp.float32), (ny, nx))
-    ym2 = jnp.broadcast_to(jnp.asarray(ymapr, jnp.float32), (ny, nx))
-    del fcoriolis  # unused by the 12 pipeline outputs
+    def maps(a):
+        a = jnp.asarray(a, jnp.float32)
+        return a if a.ndim == 3 else jnp.broadcast_to(a, (ny, nx))
+
+    xm, ym = maps(xmapr), maps(ymapr)
+    if ym.ndim != xm.ndim:
+        xm, ym = (jnp.broadcast_to(a, (nlev, ny, nx)) for a in (xm, ym))
+    maps3d = xm.ndim == 3
+    if maps3d and xm.shape[0] != nlev:
+        raise ValueError("derived_fields_fused: per-level map factors need "
+                         "one plane per level")
+    if nlev * ny * nx >= 2 ** 31:
+        raise ValueError("derived_fields_fused: a stack of 2**31 points or "
+                         "more overflows the kernel's int32 indices")
+    by, bx = block
+    g = _Geom(nlev, ny, nx, ny_o, nx_o, oy, ox, nyg, nxg, maps3d,
+              all_defined, by, bx)
     offs = (jnp.zeros(2, jnp.int32) if grid_offsets is None
             else jnp.asarray(grid_offsets, jnp.int32))
-    scalars = (jnp.asarray(alevel, jnp.float32),
-               jnp.asarray(blevel, jnp.float32), offs)
-    tab = jnp.asarray(_TAB128)
-
-    f32_3d = jax.ShapeDtypeStruct((nlev, ny, nx), jnp.float32)
-    mdt = (jax.ShapeDtypeStruct((nlev, ny, nx), jnp.int8) if mask8
-           else jax.ShapeDtypeStruct((nlev, ny, nx), jnp.bool_))
-
-    def run(part, TY):
-        jy = -(-ny // TY)
-        nb8 = -(-ny // 8)
-        r8 = TY // 8
-
-        def im_c(j, lev, *_):
-            return (lev, j, 0)
-
-        def im_p8(j, lev, *_):
-            return (lev, jnp.maximum(j * r8 - 1, 0), 0)
-
-        def im_n8(j, lev, *_):
-            return (lev, jnp.minimum((j + 1) * r8, nb8 - 1), 0)
-
-        def im2_c(j, lev, *_):
-            return (j, 0)
-
-        def im2_p8(j, lev, *_):
-            return (jnp.maximum(j * r8 - 1, 0), 0)
-
-        def im2_n8(j, lev, *_):
-            return (jnp.minimum((j + 1) * r8, nb8 - 1), 0)
-
-        def c3():
-            return pl.BlockSpec((1, TY, nx), im_c, memory_space=pltpu.VMEM)
-
-        def p83():
-            return pl.BlockSpec((1, 8, nx), im_p8, memory_space=pltpu.VMEM)
-
-        def n83():
-            return pl.BlockSpec((1, 8, nx), im_n8, memory_space=pltpu.VMEM)
-
-        def c2():
-            return pl.BlockSpec((TY, nx), im2_c, memory_space=pltpu.VMEM)
-
-        tabspec = pl.BlockSpec(memory_space=pltpu.VMEM)
-        p82 = functools.partial(pl.BlockSpec, (8, nx),
-                                memory_space=pltpu.VMEM)
-        if part == "all":
-            in_specs = [c3(), p83(), n83()] * 3 + [c3()]           # tk,u,v,q
-            operands = [tk.values, tk.values, tk.values,
-                        u.values, u.values, u.values,
-                        v.values, v.values, v.values, q.values]
-            if not all_defined:
-                if levpack_masks:
-                    # 2-D lev-packed planes: center + 8-row halo blocks,
-                    # all lev-constant (fetched once per y-tile)
-                    in_specs += [c2(), p82(im2_p8), p82(im2_n8)] * 2 \
-                        + [c2(), c2()]
-                else:
-                    in_specs += [c3(), p83(), n83()] * 2 + [c3(), c3()]
-                operands += [tkm, tkm, tkm, um, um, um, vm, qm]
-            in_specs += [c2()] + ([] if all_defined else [c2()])   # ps(+m)
-            operands += [ps.values] + ([] if all_defined else [psm])
-            in_specs += [c2(), p82(im2_p8), p82(im2_n8)] * 2 + [tabspec]
-            operands += [xm2, xm2, xm2, ym2, ym2, ym2, tab]
-            nv, nm = 12, (2 if all_defined else 9)
-        elif part == "elementwise":
-            if all_defined:
-                in_specs = [c3()] * 4 + [c2(), tabspec]
-                operands = [tk.values, u.values, v.values, q.values,
-                            ps.values, tab]
-            else:
-                in_specs = [c3()] * 8 + [c2(), c2(), tabspec]
-                operands = [tk.values, u.values, v.values, q.values,
-                            tkm, um, vm, qm, ps.values, psm, tab]
-            nv, nm = 7, (1 if all_defined else 5)
-        else:   # "stencil"
-            in_specs = [c3(), p83(), n83()] * 3
-            operands = [tk.values, tk.values, tk.values,
-                        u.values, u.values, u.values,
-                        v.values, v.values, v.values]
-            if not all_defined:
-                in_specs += [c3(), p83(), n83()] * 2 + [c3()]
-                operands += [tkm, tkm, tkm, um, um, um, vm]
-            in_specs += [c2(), p82(im2_p8), p82(im2_n8)] * 2
-            operands += [xm2, xm2, xm2, ym2, ym2, ym2]
-            nv, nm = 5, (1 if all_defined else 4)
-        if stacked:
-            def im4(j, lev, *_):
-                return (0, lev, j, 0)
-
-            vspec = pl.BlockSpec((12, 1, TY, nx), im4,
-                                 memory_space=pltpu.VMEM)
-            if packed_masks:
-                # masks pack into ONE int32 bit-plane (bit k = field k,
-                # DerivedFields order): 4 mask bytes/point instead of 12.
-                # Measured a slight LOSS on chip (4.59 -> 4.65 ms): the
-                # 12 early per-plane stores overlap compute better than
-                # one end-of-kernel write + 12 live accumulator tiles
-                # (PERF.md dead ends) — kept as an option for consumers
-                # that want the compact mask ABI
-                out_specs = (vspec, pl.BlockSpec(
-                    (1, TY, nx), lambda j, lev, *_: (lev, j, 0),
-                    memory_space=pltpu.VMEM))
-                out_shape = (
-                    jax.ShapeDtypeStruct((12, nlev, ny, nx), jnp.float32),
-                    jax.ShapeDtypeStruct((nlev, ny, nx), jnp.int32))
-            elif levpack_masks:
-                # LEV-packed output masks: 9 deduplicated int32 planes,
-                # bit L = level L; the block index ignores lev, so the
-                # (9, TY, nx) block accumulates in VMEM across the 32
-                # innermost lev steps and is written ONCE per y-tile
-                out_specs = (vspec, pl.BlockSpec(
-                    (9, TY, nx), lambda j, lev, *_: (0, j, 0),
-                    memory_space=pltpu.VMEM))
-                out_shape = (
-                    jax.ShapeDtypeStruct((12, nlev, ny, nx), jnp.float32),
-                    jax.ShapeDtypeStruct((9, ny, nx), jnp.int32))
-            else:
-                nmp = 2 if all_defined else (9 if dedup_masks else 12)
-                mspec = pl.BlockSpec((nmp, 1, TY, nx), im4,
-                                     memory_space=pltpu.VMEM)
-                out_specs = (vspec, mspec)
-                sdt = jnp.int8 if mask8 else jnp.bool_
-                out_shape = (
-                    jax.ShapeDtypeStruct((12, nlev, ny, nx), jnp.float32),
-                    jax.ShapeDtypeStruct((nmp, nlev, ny, nx), sdt))
-        else:
-            # values + deduplicated masks: td/duc/dv reuse rh/the/vo's
-            # mask planes (bitwise-identical by construction).  mask8
-            # routes mask planes through the boundary as int8 - Pallas
-            # lowers i1 operands/results to i32 buffers with materialized
-            # convert passes on both sides (4x the DMA bytes plus two
-            # extra HBM round-trips per mask); int8 keeps them 1 byte.
-            out_specs = tuple([c3() for _ in range(nv + nm)])
-            out_shape = tuple([f32_3d] * nv + [mdt] * nm)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(jy, nlev),
-            in_specs=in_specs,
-            out_specs=out_specs,
-        )
-        skind = stacked
-        if stacked:
-            skind = ("packed" if packed_masks
-                     else ("lev" if levpack_masks
-                           else ("dedup9" if dedup_masks else True)))
-        return pl.pallas_call(
-            functools.partial(_kernel, ny, nx, TY, nlev, nyg, nxg,
-                              full_x, skind, part, all_defined),
-            grid_spec=grid_spec,
-            out_shape=out_shape,
-            interpret=interpret,
-        )(*scalars, *operands)
-
-    def region2():
-        # logical-region plane from global coordinates: True exactly on
-        # logical points, False on padded dead rows/lanes and halo rows
-        # outside the domain.  Unsharded unpadded calls see constant
-        # inputs (offs is a literal zero) and XLA folds it to True.
-        r = jnp.arange(ny, dtype=jnp.int32)[:, None] + offs[0]
-        c = jnp.arange(nx, dtype=jnp.int32)[None, :] + offs[1]
-        return (r >= 0) & (r < nyg) & (c >= 0) & (c < nxg)
-
-    if split:
-        ev = run("elementwise", TY_E)
-        sv = run("stencil", TY)
-        vals = list(ev[:7]) + list(sv[:5])
-        m9 = list(ev[7:]) + list(sv[5:])
-    else:
-        outs = run("all", TY)
-        if stacked:
-            from ..models.pipeline import DerivedFieldsStacked
-            masks = outs[1]
-            if levpack_masks:
-                # uint32 marks the LEV-packed layout for mask_plane
-                # (free bitcast; int32 in-kernel keeps Mosaic happy)
-                masks = masks.view(jnp.uint32)
-            return DerivedFieldsStacked(
-                values=outs[0], masks=masks,
-                region=region2()[None] if all_defined else None)
-        vals, m9 = outs[:12], outs[12:]
-    if mask8:
-        # put_ref stores strictly-0/1 bytes, so a bool view is valid
-        m9 = [m != 0 for m in m9] if _V("MF_FUSED_MASK_CONVERT") else \
-             [m.view(jnp.bool_) for m in m9]
-    if all_defined:
-        # m9 is [humidity gate, tfp gate]; the other 10 are constant True
-        # on the logical region — gated to False on padded dead
-        # rows/lanes so the canonical-layout invariant (masks False on
-        # dead points) holds.  One shared buffer for all 10.
-        ones = jnp.broadcast_to(region2(), vals[0].shape)
-        masks = [ones, ones, m9[0], m9[0], ones, ones, ones, ones, ones,
-                 ones, ones, m9[1]]
-    else:
-        # expand 9 written masks to the 12-field order (shared buffers
-        # for the twins: td<-rh, duc<-the, dv<-vo)
-        masks = [m9[i] for i in (0, 1, 2, 2, 3, 3, 4, 5, 5, 6, 7, 8)]
-    return DerivedFields(*[Field(v, m) for v, m in zip(vals, masks)])
+    flat = lambda a: a.reshape(-1)
+    operands = [flat(f.values) for f in (tk, q, u, v, ps)]
+    if not all_defined:
+        operands += [flat(f.mask) for f in (tk, q, u, v, ps)]
+    operands += [flat(xm), flat(ym)]
+    nm = 2 if all_defined else 9
+    out = pl.pallas_call(
+        functools.partial(_kernel, g=g),
+        out_shape=(jax.ShapeDtypeStruct((12, nlev, ny_o, nx_o), jnp.float32),
+                   jax.ShapeDtypeStruct((nm, nlev, ny_o, nx_o), jnp.int8)),
+        grid=(nlev, pl.cdiv(ny_o, by), pl.cdiv(nx_o, bx)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        interpret=interpret,
+        name="derived_fields_fused",
+    )(offs, jnp.asarray(alevel, jnp.float32).reshape(-1),
+      jnp.asarray(blevel, jnp.float32).reshape(-1), jnp.asarray(EWT),
+      *operands)
+    st = DerivedFieldsStacked(values=out[0], masks=out[1])
+    return st if stacked else st.as_fields()

@@ -1,37 +1,17 @@
-"""Single-pass Pallas kernels for the level-conversion suites.
+"""The level-conversion suites as one jitted program.
 
-BASELINE config 2 — the full humidity/temperature conversion suite on a
-level stack — composes many *independent* pointwise operators over the
-same four inputs.  One jitted XLA program CSEs the shared saturation
-math but still builds one fusion per output, so the inputs are re-read
-from HBM once per consumer: 8 conversions measure ~160 B/pt of traffic
-where the intrinsic requirement (4 inputs read once, 8 outputs written
-once) is ~60 B/pt (PERF.md "BASELINE configs").
-
-:func:`alevel_suite_fused` computes ANY requested set of the pointwise
+BASELINE config 2 — the humidity/temperature conversion suite on a level
+stack — composes many independent pointwise operators over the same
+inputs.  :func:`alevel_suite_fused` computes any requested set of the
 a-level family (``aleveltemp`` / ``alevelhum`` / ``alevelthe`` /
-``alevelducting`` modes) in ONE pass over ``(y-tile, level)`` blocks —
-the elementwise sibling of the 12-output pipeline kernel
-(ops/fused.py).  :func:`hlevel_suite_fused` is the hybrid-level form:
-prognostic surface pressure + per-level coefficients, with the 3-D
-pressure stack never materialized (``p = alevel[k] + blevel[k]*ps`` is
-rebuilt per level from SMEM scalars and the ps tile).
+``alevelducting`` modes) in one jitted program, so XLA fuses the sibling
+outputs and shares the saturation-table math between them.
+:func:`hlevel_suite_fused` is the hybrid-level form: surface pressure and
+per-level coefficients, with the 3-D pressure built inside the program.
 
-The formulas are NOT duplicated: the kernels trace the exact
-``levels.*`` implementations inside the tile (the ``icing_fused``
-pattern), with masks riding as int32 lanes (Mosaic cannot treat i1
-vectors as data) and ONE substitution installed for the trace: the
-41-entry saturation table's pair lookup becomes a Mosaic lane-gather
-(:class:`..constants.ewt_pair_impl`) — the jnp path's select chain
-measured a net in-kernel LOSS (Mosaic VPU select codegen; PERF.md).
-Both lookups return exact table values, so results stay bit-equal.
-:class:`.thermo.esat_memo` additionally dedupes the shared saturation
-evaluation across conversions of the same temperature tracer at trace
-time.
-
-Equivalence: interpret-mode results are bitwise identical to the jitted
-jnp ops (tests/test_fused_suite.py — with undefs and out-of-table
-temperatures); on-chip, masks identical and values to f32 reassociation.
+The formulas are the ``levels.*`` implementations themselves, so the
+suite agrees with per-op calls (tests/test_fused_suite.py, with undefs
+and out-of-table temperatures).
 """
 
 from __future__ import annotations
@@ -41,14 +21,12 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ..constants import ewt_pair_impl
 from ..field import Field
-from ._harness import require
-from .fused import _TAB128, _lookup
-from .levels import alevelducting, alevelhum, alevelthe, aleveltemp
+from ._harness import and_masks, require
+from .levels import (_bad_hlevel, _levelducting_core, _levelhum_core,
+                     _levelthe_core, _leveltemp_core, alevelducting,
+                     alevelhum, alevelthe, aleveltemp)
 
 __all__ = ["alevel_suite_fused", "hlevel_suite_fused"]
 
@@ -81,212 +59,39 @@ def _build_reqs(name, temps, hums_q, hums_rh, thes, ducts_q, ducts_rh):
     return tuple(reqs)
 
 
-def _pick_ty(name, ny, nx, nin, nout, ty):
-    """Row-tile height within the scoped-VMEM budget: 48 measured faster
-    than 96 on the operational grid (PERF.md), shrinking with the
-    double-buffered (nin + nout) x (f32 + i8) block footprint on wide
-    grids / big suites.  Elementwise tiles: no halos, no fill
-    constraint — any multiple of 8."""
-    if ty is None:
-        budget = 12 * 2 ** 20
-        per_row_lane = 2 * 5 * (nin + nout) + 8 * 4   # blocks + temps
-        ty = 8
-        for cand in (48, 40, 32, 24, 16, 8):
-            if cand * max(nx, 128) * per_row_lane <= budget:
-                ty = cand
-                break
-        ty = min(ty, -(-ny // 8) * 8)
-    require(ty % 8 == 0 and ty > 0, f"{name}: bad ty")
-    return ty
-
-
-def _c3(TY, nx):
-    return pl.BlockSpec((1, TY, nx), lambda j, lev, *_: (lev, j, 0),
-                        memory_space=pltpu.VMEM)
-
-
-def _c2(TY, nx):
-    return pl.BlockSpec((TY, nx), lambda j, lev, *_: (j, 0),
-                        memory_space=pltpu.VMEM)
-
-
-def _table_pair(tab_ref):
-    """Mosaic lane-gather pair lookup (exact table values) — the jnp
-    select chain is ~5x costlier inside the kernel (PERF.md)."""
-    return lambda ls: (_lookup(tab_ref, ls), _lookup(tab_ref, ls + 1))
-
-
 def _consumes(reqs):
     """(need_q, need_rh): which optional inputs the request set reads —
-    the single source of truth for input pruning (kernels, wrappers,
-    and the staging runners all derive from this)."""
+    the single source of truth for input pruning (the suites and the
+    staging runner both derive from this)."""
     return (any(f in ("hum_q", "the", "duct_q") for f, _ in reqs),
             any(f in ("hum_rh", "duct_rh") for f, _ in reqs))
 
 
-def _unpack_tqr(fields, reqs):
-    """(t, q-or-None, rh-or-None) from the pruned input list."""
-    need_q, need_rh = _consumes(reqs)
-    it = iter(fields)
-    tF = next(it)
-    qF = next(it) if need_q else None
-    rF = next(it) if need_rh else None
-    return tF, qF, rF
+def _defined(f: Field, all_defined: bool) -> Field:
+    """``all_defined``: the caller asserts every point is defined, so the
+    mask is never read and XLA folds the ANDs away."""
+    if f is None or not all_defined:
+        return f
+    return Field(f.values, jnp.ones(f.values.shape, bool))
 
 
-def _gate_kind(fam, c):
-    """Which data-dependent gate survives the ALL_DEFINED fast path for
-    this mode: the ewt table-range predicate of the T-form temperature
-    ("T": odd hum modes, temp 4, duct 3 — all memoized to one esat),
-    of the theta-form ``tk = theta * pidcp`` temperature ("TH": even
-    hum modes, duct 4 — bitwise-identical expressions), temp 5's own
-    ``tk = theta * pi / cp`` spelling ("TH5" — an ulp-sensitive
-    variant kept separate so gates stay bitwise), or none (pure
-    arithmetic: temp 1-3, THE, q-ducting)."""
-    if fam == "temp":
-        return {4: "T", 5: "TH5"}.get(c)
-    if fam in ("hum_q", "hum_rh"):
-        return "T" if c % 2 == 1 else "TH"
-    if fam in ("duct_q", "duct_rh"):
-        return {3: "T", 4: "TH"}.get(c)
-    return None  # "the"
+_KW = ("temps", "hums_q", "hums_rh", "thes", "ducts_q", "ducts_rh",
+       "all_defined")
 
 
-def _gate_planes(reqs):
-    """Ordered distinct gate kinds the request set needs."""
-    kinds = []
-    for fam, c in reqs:
-        k = _gate_kind(fam, c)
-        if k is not None and k not in kinds:
-            kinds.append(k)
-    return tuple(kinds)
-
-
-def _region(TY, nx, nyg, nxg, offs):
-    """Logical-region predicate (int32) for block row-tile j — gates the
-    fast path's written mask planes False on padded dead rows/lanes
-    (CLAUDE.md layout invariant).  ``offs`` is the (row, col) global
-    position of local element (0, 0) — zeros unsharded; per-shard runs
-    thread their offsets via ``grid_offsets``
-    (``run_sharded(..., offset_arg="grid_offsets")`` injects them)."""
-    j = pl.program_id(0)
-    rr = jax.lax.broadcasted_iota(jnp.int32, (TY, nx), 0) + j * TY + offs[0]
-    cc = jax.lax.broadcasted_iota(jnp.int32, (TY, nx), 1) + offs[1]
-    return ((rr >= 0) & (rr < nyg) & (cc >= 0) & (cc < nxg)
-            ).astype(jnp.int32)
-
-
-def _write_allm(reqs, outs, out_refs, TY, nx, nyg, nxg, offs):
-    """Fast-path epilogue: all values, then one mask plane per distinct
-    gate kind, sourced from the first traced output of that kind (its
-    mask under all-ones inputs IS the gate, so the plane is bitwise what
-    the masked path would have written for every output of the kind)."""
-    nout = len(outs)
-    for k, f in enumerate(outs):
-        out_refs[k][0] = f.values
-    reg = _region(TY, nx, nyg, nxg, offs) if nyg is not None else None
-    for i, kind in enumerate(_gate_planes(reqs)):
-        src = next(f for (fam, c), f in zip(reqs, outs)
-                   if _gate_kind(fam, c) == kind)
-        m = src.mask
-        if m.dtype == jnp.bool_:
-            m = m.astype(jnp.int32)
-        if reg is not None:
-            m = m & reg
-        mref = out_refs[nout + i]
-        mref[0] = (m != 0).astype(mref.dtype)
-
-
-def _write_outs(outs, out_refs):
-    n = len(outs)
-    for k, f in enumerate(outs):
-        out_refs[k][0] = f.values
-        mref = out_refs[n + k]
-        m = f.mask
-        if m.dtype != jnp.bool_:
-            m = m != 0
-        mref[0] = m.astype(mref.dtype)
-
-
-def _expand_allm(reqs, outs, nout, nlev, ny, nx, nyg, nxg, offs):
-    """Fast-path host epilogue: map each request to its gate plane (as
-    bool) or to the shared constant-True mask — region-gated to the
-    logical grid when ``global_shape`` was given, so the padded-layout
-    invariant (masks False on dead points) holds."""
-    kinds = _gate_planes(reqs)
-    gates = {k: outs[nout + i].view(jnp.bool_)
-             for i, k in enumerate(kinds)}
-    if nyg is None:
-        ones = jnp.ones((nlev, ny, nx), jnp.bool_)
-    else:
-        r = jnp.arange(ny, dtype=jnp.int32)[:, None] + offs[0]
-        c = jnp.arange(nx, dtype=jnp.int32)[None, :] + offs[1]
-        ones = jnp.broadcast_to((r >= 0) & (r < nyg)
-                                & (c >= 0) & (c < nxg), (nlev, ny, nx))
-    return [Field(outs[k], gates.get(_gate_kind(fam, c), ones))
-            for k, (fam, c) in enumerate(reqs)]
-
-
-def _suite_kernel(reqs, nin, allm, TY, nyg, nxg, *kargs):
-    if allm:
-        offs_ref, tab_ref, *refs = kargs
-    else:
-        tab_ref, *refs = kargs
-    vals = [r[0] for r in refs[:nin]]
-    if allm:
-        msks = [jnp.ones(v.shape, jnp.int32) for v in vals]
-        out_refs = refs[nin:]
-    else:
-        msks = [r[0].astype(jnp.int32) for r in refs[nin:2 * nin]]
-        out_refs = refs[2 * nin:]
-
-    fields = [Field(v, m) for v, m in zip(vals, msks)]
-    tF, qF, rF = _unpack_tqr(fields[:-1], reqs)
-    pF = fields[-1]
-
-    from .thermo import esat_memo
-    with ewt_pair_impl(_table_pair(tab_ref)), esat_memo():
-        outs = []
-        for fam, c in reqs:
-            if fam == "temp":
-                outs.append(aleveltemp(tF, pF, compute=c))
-            elif fam == "hum_q":
-                outs.append(alevelhum(tF, qF, pF, compute=c))
-            elif fam == "hum_rh":
-                outs.append(alevelhum(tF, rF, pF, compute=c))
-            elif fam == "the":
-                outs.append(alevelthe(tF, qF, pF, compute=c))
-            elif fam == "duct_q":
-                outs.append(alevelducting(tF, qF, pF, compute=c))
-            else:  # "duct_rh"
-                outs.append(alevelducting(tF, rF, pF, compute=c))
-        if allm:
-            _write_allm(reqs, outs, out_refs, TY, tF.values.shape[-1],
-                        nyg, nxg, offs_ref)
-            return
-    _write_outs(outs, out_refs)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "temps", "hums_q", "hums_rh", "thes", "ducts_q", "ducts_rh",
-    "interpret", "ty", "all_defined", "global_shape"))
+@functools.partial(jax.jit, static_argnames=_KW)
 def alevel_suite_fused(t: Field, q: Field, rh: Field, p: Field,
                        temps=(), hums_q=(), hums_rh=(),
                        thes=(), ducts_q=(), ducts_rh=(),
-                       interpret: bool = False,
-                       ty: int | None = None,
-                       all_defined: bool = False,
-                       global_shape=None,
-                       grid_offsets=None):
-    """All requested a-level conversions in one kernel pass.
+                       all_defined: bool = False):
+    """All requested a-level conversions in one program.
 
     Args:
       t: ``[nlev, ny, nx]`` temperature Field (Kelvin for odd computes,
         theta for even — exactly :func:`..ops.levels.aleveltemp` /
         :func:`..ops.levels.alevelhum` semantics per mode).
-      q, rh: specific humidity / RH% Fields (same shape; an input whose
-        request tuples are all empty is ignored entirely — it never
-        touches the device, so any placeholder works).
+      q, rh: specific humidity / RH% Fields (an input whose request
+        tuples are all empty is never read, so any placeholder works).
       p: pressure Field (hPa).
       temps: tuple of ``aleveltemp`` computes (1-5).
       hums_q: tuple of ``alevelhum`` computes taking ``q`` (1/2, 5/6,
@@ -296,244 +101,111 @@ def alevel_suite_fused(t: Field, q: Field, rh: Field, p: Field,
       thes: tuple of ``alevelthe`` computes (1/2; both take ``q``).
       ducts_q / ducts_rh: ``alevelducting`` computes taking ``q``
         (1/2) / ``rh`` (3/4).
+      all_defined: the caller asserts every input point is defined; the
+        input masks are not read and only the data-dependent gates (the
+        saturation table's range) remain in the output masks.
 
     Returns the outputs as a list of Fields, in
     ``temps + hums_q + hums_rh + thes + ducts_q + ducts_rh`` request
-    order.  Works on the canonical padded layout with no extra
-    arguments — the suite is pointwise (no edge fills), so dead-lane
-    masks stay False through the ANDs.  Pointwise also means it shards
-    with no halo exchange: ``run_sharded(op, mesh, 0, ...)``.
-
-    ``all_defined=True`` is the fast path (caller asserts every logical
-    input point defined): no input mask planes are read, and the output
-    masks collapse to at most 3 ewt table-range gate planes (the
-    T-form, theta-form, and temp-5 spellings of the saturation gate —
-    :func:`_gate_kind`); the gate-free outputs come back constant-True.
-    On the padded layout pass ``global_shape=(ny, nx)`` so the written
-    gates and synthesized masks stay False on dead rows/lanes;
-    ``grid_offsets`` is the traced (row, col) global position of local
-    element (0, 0) for per-shard execution inside ``shard_map`` (zeros
-    unsharded — ``run_sharded(op, mesh, 0, ...,
-    offset_arg="grid_offsets")`` threads each shard's offsets, so the
-    fast path composes with the decomposition).  Values are
-    bit-identical to the masked path on all-defined inputs.
+    order.  The suite is pointwise, so it shards with no halo exchange:
+    ``run_sharded(op, mesh, 0, ...)``.
     """
     reqs = _build_reqs("alevel_suite_fused", temps, hums_q, hums_rh,
                        thes, ducts_q, ducts_rh)
-    require(global_shape is None or all_defined,
-            "alevel_suite_fused: global_shape is a fast-path argument "
-            "(the masked path's dead lanes are handled by input masks)")
-    nout = len(reqs)
-    ngate = len(_gate_planes(reqs)) if all_defined else nout
-    # unused inputs never touch the device (the kernel is byte-bound)
-    tqr = _unpack_tqr([t, q, rh], reqs)
-    fields = [f for f in tqr if f is not None] + [p]
-    nin = len(fields)
-    nlev, ny, nx = t.values.shape
-    for f in fields:
-        require(f.values.shape == (nlev, ny, nx),
+    need_q, need_rh = _consumes(reqs)
+    t, p = _defined(t, all_defined), _defined(p, all_defined)
+    q = _defined(q, all_defined) if need_q else None
+    rh = _defined(rh, all_defined) if need_rh else None
+    for f in (q, rh, p):
+        require(f is None or f.values.shape == t.values.shape,
                 "alevel_suite_fused: field shape mismatch")
-    nyg, nxg = global_shape if global_shape is not None else (None, None)
-
-    TY = _pick_ty("alevel_suite_fused", ny, nx, nin, nout, ty)
-    jy = -(-ny // TY)
-
-    operands = [jnp.asarray(_TAB128), *[f.values for f in fields]]
-    if not all_defined:
-        operands += [f.mask.view(jnp.int8) for f in fields]
-    nblocks = nin if all_defined else 2 * nin
-    tabspec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    kern = functools.partial(_suite_kernel, reqs, nin, all_defined, TY,
-                             nyg, nxg)
-
-    f32_3d = jax.ShapeDtypeStruct((nlev, ny, nx), jnp.float32)
-    i8_3d = jax.ShapeDtypeStruct((nlev, ny, nx), jnp.int8)
-    out_specs = tuple([_c3(TY, nx)] * (nout + ngate))
-    out_shape = tuple([f32_3d] * nout + [i8_3d] * ngate)
-    if all_defined:
-        offs = (jnp.zeros(2, jnp.int32) if grid_offsets is None
-                else jnp.asarray(grid_offsets, jnp.int32))
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1, grid=(jy, nlev),
-            in_specs=[tabspec] + [_c3(TY, nx)] * nblocks,
-            out_specs=out_specs)
-        outs = pl.pallas_call(kern, grid_spec=grid_spec,
-                              out_shape=out_shape,
-                              interpret=interpret)(offs, *operands)
-        return _expand_allm(reqs, outs, nout, nlev, ny, nx, nyg, nxg,
-                            offs)
-    outs = pl.pallas_call(
-        kern,
-        grid=(jy, nlev),
-        in_specs=[tabspec] + [_c3(TY, nx)] * nblocks,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(*operands)
-    return [Field(outs[k], outs[nout + k].view(jnp.bool_))
-            for k in range(nout)]
-
-
-def _hsuite_kernel(reqs, nin, allm, TY, nyg, nxg, *kargs):
-    if allm:
-        a_ref, b_ref, offs_ref, tab_ref, *refs = kargs
-    else:
-        a_ref, b_ref, tab_ref, *refs = kargs
-    from ._harness import and_masks
-    from .levels import (_levelducting_core, _levelhum_core,
-                         _levelthe_core, _leveltemp_core)
-
-    vals = [r[0] for r in refs[:nin - 1]]
-    psv = refs[nin - 1][...]
-    if allm:
-        msks = [jnp.ones(v.shape, jnp.int32) for v in vals]
-        psm = jnp.ones(psv.shape, jnp.int32)
-        out_refs = refs[nin:]
-    else:
-        msks = [r[0].astype(jnp.int32) for r in refs[nin:2 * nin - 1]]
-        psm = refs[2 * nin - 1][...].astype(jnp.int32)
-        out_refs = refs[2 * nin:]
-
-    fields = [Field(v, m) for v, m in zip(vals, msks)]
-    tF, qF, rF = _unpack_tqr(fields, reqs)
-
-    lev = pl.program_id(1)
-    p_arr = a_ref[lev] + b_ref[lev] * psv    # hybrid pressure, per point
-
-    from .thermo import esat_memo
-    with ewt_pair_impl(_table_pair(tab_ref)), esat_memo():
-        outs = []
-        for fam, c in reqs:
-            if fam == "temp":
-                outs.append(_leveltemp_core(
-                    tF, p_arr, and_masks(tF) & psm, c))
-            elif fam in ("hum_q", "hum_rh"):
-                hF = qF if fam == "hum_q" else rF
-                # hlevel gate (cc:1187): ps defined except modes 7/11
-                p_mask = None if c in (7, 11) else psm
-                outs.append(_levelhum_core(tF, hF, p_arr, p_mask, c))
-            elif fam == "the":
-                outs.append(_levelthe_core(
-                    tF, qF, p_arr, and_masks(tF, qF) & psm, c))
-            else:  # duct_q / duct_rh
-                hF = qF if fam == "duct_q" else rF
-                outs.append(_levelducting_core(
-                    tF, hF, p_arr, and_masks(tF, hF) & psm, c))
-        if allm:
-            _write_allm(reqs, outs, out_refs, TY, psv.shape[-1],
-                        nyg, nxg, offs_ref)
-            return
-    _write_outs(outs, out_refs)
+    outs = []
+    for fam, c in reqs:
+        if fam == "temp":
+            outs.append(aleveltemp(t, p, compute=c))
+        elif fam == "hum_q":
+            outs.append(alevelhum(t, q, p, compute=c))
+        elif fam == "hum_rh":
+            outs.append(alevelhum(t, rh, p, compute=c))
+        elif fam == "the":
+            outs.append(alevelthe(t, q, p, compute=c))
+        elif fam == "duct_q":
+            outs.append(alevelducting(t, q, p, compute=c))
+        else:  # "duct_rh"
+            outs.append(alevelducting(t, rh, p, compute=c))
+    return outs
 
 
 def hlevel_suite_fused(t: Field, q: Field, rh: Field, ps: Field,
                        alevel, blevel,
                        temps=(), hums_q=(), hums_rh=(),
                        thes=(), ducts_q=(), ducts_rh=(),
-                       interpret: bool = False,
-                       ty: int | None = None,
-                       all_defined: bool = False,
-                       global_shape=None,
-                       grid_offsets=None):
-    """The hybrid-level conversion suite in one kernel pass — the
-    production form: prognostic surface pressure + per-level hybrid
-    coefficients instead of a materialized 3-D pressure field (which
-    never touches HBM: ``p = alevel[k] + blevel[k]*ps`` is rebuilt per
-    level from SMEM scalars and the ps tile, exactly like the pipeline
-    and interpolation kernels).
+                       all_defined: bool = False):
+    """The hybrid-level conversion suite in one program: surface pressure
+    and per-level hybrid coefficients instead of a 3-D pressure field
+    (``p = alevel[k] + blevel[k] * ps`` is formed inside the program).
 
-    Semantics are hleveltemp / hlevelhum / hlevelthe / hlevelducting
-    per mode — including hlevelhum's ps-definedness gate (defined ps
-    required except for the pressure-independent modes 7/11,
+    Semantics are hleveltemp / hlevelhum / hlevelthe / hlevelducting per
+    mode — including hlevelhum's ps-definedness gate (defined ps required
+    except for the pressure-independent modes 7/11,
     FieldCalculations.cc:1187), which is INVERTED vs alevelhum's.
 
     Args as :func:`alevel_suite_fused` except ``ps`` is the ``(ny, nx)``
     surface-pressure Field and ``alevel``/``blevel`` are length-``nlev``
-    coefficient arrays.  They are DATA (one compiled kernel serves every
+    coefficient arrays.  They are DATA (one compiled program serves every
     coefficient set of the same nlev); the per-level ``bad_hlevel``
     validation runs when they are concrete and is skipped for traced
     values (e.g. inside ``run_sharded`` / an outer jit).
     """
     if not isinstance(alevel, jax.core.Tracer) \
             and not isinstance(blevel, jax.core.Tracer):
-        from .levels import _bad_hlevel
         for a, b in zip(np.asarray(alevel), np.asarray(blevel)):
             require(not _bad_hlevel(float(a), float(b)),
                     "hlevel_suite_fused: bad a/b level")
-    return _hlevel_suite_fused(t, q, rh, ps,
-                               jnp.asarray(alevel, jnp.float32),
-                               jnp.asarray(blevel, jnp.float32),
-                               temps=tuple(int(c) for c in temps),
-                               hums_q=tuple(int(c) for c in hums_q),
-                               hums_rh=tuple(int(c) for c in hums_rh),
-                               thes=tuple(int(c) for c in thes),
-                               ducts_q=tuple(int(c) for c in ducts_q),
-                               ducts_rh=tuple(int(c) for c in ducts_rh),
-                               interpret=interpret, ty=ty,
-                               all_defined=all_defined,
-                               global_shape=global_shape,
-                               grid_offsets=grid_offsets)
+    return _hlevel_suite(t, q, rh, ps, jnp.asarray(alevel, jnp.float32),
+                         jnp.asarray(blevel, jnp.float32),
+                         temps=tuple(int(c) for c in temps),
+                         hums_q=tuple(int(c) for c in hums_q),
+                         hums_rh=tuple(int(c) for c in hums_rh),
+                         thes=tuple(int(c) for c in thes),
+                         ducts_q=tuple(int(c) for c in ducts_q),
+                         ducts_rh=tuple(int(c) for c in ducts_rh),
+                         all_defined=all_defined)
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "temps", "hums_q", "hums_rh", "thes", "ducts_q", "ducts_rh",
-    "interpret", "ty", "all_defined", "global_shape"))
-def _hlevel_suite_fused(t, q, rh, ps, alevel, blevel,
-                        temps, hums_q, hums_rh, thes, ducts_q, ducts_rh,
-                        interpret, ty, all_defined=False,
-                        global_shape=None, grid_offsets=None):
+@functools.partial(jax.jit, static_argnames=_KW)
+def _hlevel_suite(t, q, rh, ps, alevel, blevel, temps, hums_q, hums_rh,
+                  thes, ducts_q, ducts_rh, all_defined=False):
     reqs = _build_reqs("hlevel_suite_fused", temps, hums_q, hums_rh,
                        thes, ducts_q, ducts_rh)
-    require(global_shape is None or all_defined,
-            "hlevel_suite_fused: global_shape is a fast-path argument")
-    nout = len(reqs)
-    ngate = len(_gate_planes(reqs)) if all_defined else nout
-    nyg, nxg = global_shape if global_shape is not None else (None, None)
-    tqr = _unpack_tqr([t, q, rh], reqs)
-    stacks = [f for f in tqr if f is not None]
-    nin = len(stacks) + 1                      # + ps
+    need_q, need_rh = _consumes(reqs)
     nlev, ny, nx = t.values.shape
     require(alevel.shape == (nlev,) and blevel.shape == (nlev,),
             "hlevel_suite_fused: alevel/blevel must have nlev entries")
-    for f in stacks:
-        require(f.values.shape == (nlev, ny, nx),
-                "hlevel_suite_fused: field shape mismatch")
     require(ps.values.shape == (ny, nx),
             "hlevel_suite_fused: ps must be (ny, nx)")
-
-    TY = _pick_ty("hlevel_suite_fused", ny, nx, nin, nout, ty)
-    jy = -(-ny // TY)
-
-    tabspec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    in_specs = [tabspec] + [_c3(TY, nx)] * (nin - 1) + [_c2(TY, nx)]
-    operands = [jnp.asarray(_TAB128),
-                *[f.values for f in stacks], ps.values]
-    if not all_defined:
-        in_specs += [_c3(TY, nx)] * (nin - 1) + [_c2(TY, nx)]
-        operands += [f.mask.view(jnp.int8) for f in stacks]
-        operands += [ps.mask.view(jnp.int8)]
-
-    f32_3d = jax.ShapeDtypeStruct((nlev, ny, nx), jnp.float32)
-    i8_3d = jax.ShapeDtypeStruct((nlev, ny, nx), jnp.int8)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3 if all_defined else 2,
-        grid=(jy, nlev),
-        in_specs=in_specs,
-        out_specs=tuple([_c3(TY, nx)] * (nout + ngate)))
-    prefetch = [alevel, blevel]
-    if all_defined:
-        offs = (jnp.zeros(2, jnp.int32) if grid_offsets is None
-                else jnp.asarray(grid_offsets, jnp.int32))
-        prefetch.append(offs)
-    outs = pl.pallas_call(
-        functools.partial(_hsuite_kernel, reqs, nin, all_defined, TY,
-                          nyg, nxg),
-        grid_spec=grid_spec,
-        out_shape=tuple([f32_3d] * nout + [i8_3d] * ngate),
-        interpret=interpret,
-    )(*prefetch, *operands)
-
-    if not all_defined:
-        return [Field(outs[k], outs[nout + k].view(jnp.bool_))
-                for k in range(nout)]
-    return _expand_allm(reqs, outs, nout, nlev, ny, nx, nyg, nxg, offs)
+    t, ps = _defined(t, all_defined), _defined(ps, all_defined)
+    q = _defined(q, all_defined) if need_q else None
+    rh = _defined(rh, all_defined) if need_rh else None
+    for f in (q, rh):
+        require(f is None or f.values.shape == (nlev, ny, nx),
+                "hlevel_suite_fused: field shape mismatch")
+    p_arr = alevel[:, None, None] + blevel[:, None, None] * ps.values
+    psm = ps.mask
+    outs = []
+    for fam, c in reqs:
+        if fam == "temp":
+            outs.append(_leveltemp_core(t, p_arr, and_masks(t) & psm, c))
+        elif fam in ("hum_q", "hum_rh"):
+            h = q if fam == "hum_q" else rh
+            # hlevel gate (cc:1187): ps defined except modes 7/11
+            p_mask = None if c in (7, 11) else psm
+            outs.append(_levelhum_core(t, h, p_arr, p_mask, c))
+        elif fam == "the":
+            outs.append(_levelthe_core(t, q, p_arr,
+                                       and_masks(t, q) & psm, c))
+        else:  # duct_q / duct_rh
+            h = q if fam == "duct_q" else rh
+            outs.append(_levelducting_core(t, h, p_arr,
+                                           and_masks(t, h) & psm, c))
+    return outs

@@ -5,7 +5,7 @@ vesselIcingMertins (114), vesselIcingModStall (182), FreezeFracZero (339),
 bisection (381), runge_kutta (450), vesselIcingMincog (465, 677).
 
 These are the reference's per-point *iterative numerical solvers*.  The
-TPU-native formulation replaces data-dependent scalar loops with:
+vectorized formulation replaces data-dependent scalar loops with:
 
 * whole-array ``lax.while_loop`` fixed points with per-lane convergence
   masks (trip count = slowest unconverged lane, bounded by the reference's
@@ -18,8 +18,8 @@ TPU-native formulation replaces data-dependent scalar loops with:
 Precision: MINCOG's scalar template is instantiated at ``float`` by the
 reference wrapper (VI:697), so float32 here is faithful; Overland /
 Mertins / ModStall use double intermediates in the reference — float32
-here, with conformance tolerances documented in the test suite (TPU f64 is
-emulated and ~100x slower; the formulas are condition-number benign).
+here, with conformance tolerances documented in the test suite (the
+formulas are condition-number benign).
 """
 
 from __future__ import annotations
@@ -46,8 +46,7 @@ _f32 = jnp.float32
 # solvers' sensitive stages (wave fixed point, droplet RK, freeze-
 # fraction Newton) amplify last-ulp exp/tanh differences into visible
 # output deltas, so the solver cores use the shared Cephes-structured
-# implementations (.._libm — identical arithmetic on XLA:CPU, XLA:TPU,
-# and Mosaic; see PRECISION.md "TPU revalidation").
+# implementations (.._libm — the same arithmetic on every backend).
 from .._libm import exp_f32 as _exp_f32, tanh_f32 as _tanh_f32  # noqa: E402
 
 
@@ -133,73 +132,19 @@ def vessel_icing_mertins(airtemp: Field, seatemp: Field, u: Field, v: Field,
 
 def _solver_unrolls(default=(1, 1, 1)):
     """(fp, rk, newton) loop-unroll factors for the iterative solvers —
-    steps per loop-carry handoff.  Like the interp kernel (PERF.md), the
-    binding cost of these loops is the CARRY handoff per iteration, and
+    steps per loop-carry handoff.  The binding cost of these loops is the CARRY handoff per iteration, and
     unrolling amortizes it with per-lane-identical results (done lanes
     hold, so up-to-u-1 extra fixed-point steps after convergence are
     no-ops; newton <= 4 keeps the fori so XLA cannot re-fuse the whole
-    solve with excess precision).  Defaults are per PATH — measured
-    2026-08-18 (tools/perf_lab_solver_unroll.py): in the VMEM kernels
-    (16, 10, 4) is a pure win (ModStall 30 -> 19.7 ms, Mincog 8.2 ->
-    7.7); on the whole-array jnp path unrolling the wave FP pays u
-    wasted FULL-GRID passes per early exit, a net loss for Mincog —
-    keep (1, 1, 1) there.  Trace-time env override
-    ``MF_SOLVER_UNROLL=fp,rk,newton`` for perf labs."""
+    solve with excess precision).  On the whole-array path unrolling the
+    wave FP pays u wasted FULL-GRID passes per early exit, so the default
+    is (1, 1, 1).  Trace-time env override ``MF_SOLVER_UNROLL=fp,rk,newton``
+    for experiments."""
     s = os.environ.get("MF_SOLVER_UNROLL", "")
     if s:
         fp, rk, nt = (int(x) for x in s.split(","))
         return fp, rk, nt
     return default
-
-
-#: measured kernel-path unroll factors (see _solver_unrolls docstring)
-KERNEL_SOLVER_UNROLL = (16, 10, 4)
-
-#: ModStall kernel unrolls: the fp unroll quantizes the height sweep's
-#: while trips (the cond fires every fp_u steps, so warmup <= fp_u
-#: rounds up to fp_u iterations per height); fp_u=8 paired with
-#: KERNEL_WARM_FP=8 measured 8.0 ms vs 11.6 at (16, warm 16) and 8.5
-#: at (4, warm 8) — tools/perf_lab_modstall_quant.py, 2026-08-18.
-KERNEL_SOLVER_UNROLL_MS = (8, 10, 4)
-
-#: kernel-path warm-start Newton iterations per height (0 = cold solve
-#: every height, the jnp path's exact behavior).  Round-3's sweep
-#: measured warm=3 at "max rel diff 8e-5", but the round-4 on-hardware
-#: precision pass falsified that on the physical icing regime: the
-#: warm-started roots differ at solver tolerance, and near-degenerate
-#: freeze-fraction residuals amplify that to |d| up to 1.5 cm/h on
-#: ~110/4694 lanes vs the jnp path (89 lanes beyond the 2e-3 oracle
-#: band; cold solves reproduce the jnp path to 8e-5 with ZERO lanes
-#: beyond 2e-3 — PRECISION.md "TPU revalidation").  Exact-by-default,
-#: like KERNEL_WARM_FP: cold solves ship; MF_WARM_NEWTON=3 remains the
-#: measured ~28%-faster opt-in for consumers inside the 2e-3 budget.
-KERNEL_WARM_NEWTON = int(os.environ.get("MF_WARM_NEWTON", "0"))
-
-#: kernel-path ModStall height sweep: arm the freezing-fraction loop's
-#: analytic projection (Aitken root + cap/cycle resolution) after this
-#: many exact iterations instead of 32 (0 = the jnp path's exact
-#: 32-iteration warmup).  The height sweep is 16.3 of the kernel's
-#: 19.6 ms (tools/perf_lab_modstall_ablate.py), and per-tile while trips
-#: are bound by the slowest lane, so earlier projection collapses them.
-#: Every iterate up to the projection stays exact — the reference's
-#: trajectory-dependent [0,1] escapes mostly happen in the first few
-#: iterations and are preserved.  Measured on the operational grid
-#: (tools/perf_lab_modstall_{warm,quant}.py, 2026-08-18): 19.7 ->
-#: 8.0 ms with fp unroll 8 (KERNEL_SOLVER_UNROLL_MS — the unroll
-#: quantizes trips, so warmup and fp_u move together) at 1.2e-5 of
-#: defined points differing >2e-3 from the 32-warmup path, max |d|
-#: 1.2e-2 (conformance tolerance for icing is 2e-3; the jnp projection
-#: itself accepts 0.28% >2e-3 vs the exact reference loop on
-#: adversarial inputs — PERF.md).  NOTE:
-#: warm-STARTING heights from the previous height's iterate is WRONG
-#: (25% of lanes >2e-3: early escapes are trajectory semantics), and
-#: arming the root projection earlier than the cap prediction is also
-#: worse (1.2e-5 -> 2.9e-4) — the machinery arms as a unit.
-#: Default 0 (exact): the projection's max |d| of 1.2e-2 exceeds the
-#: 2e-3 icing conformance tolerance, so a drop-in surface must not
-#: ship it silently (round-2 verdict) — opt in with MF_WARM_FP=8 or
-#: the kernels' ``warm_fp`` kwarg.
-KERNEL_WARM_FP = int(os.environ.get("MF_WARM_FP", "0"))
 
 
 def _unrolled_fori(n: int, body, init, unroll: int):
@@ -272,10 +217,9 @@ def _wave_speed_fixed_point(c0, a, needs_iter, max_iter: int, tol: float,
     inputs (wave period <= 25 s) that band is depths of a few
     decimeters (PRECISION.md quantifies it on adversarial grids).
 
-    Kernel-safe: the ``done`` carry rides as int32 and finiteness tests
-    avoid ``isfinite``/``sinh`` so the SAME function lowers inside a
-    Pallas tile (Mosaic cannot carry/select i1 vectors) —
-    icing_fused.py calls it per tile with per-tile early exit.
+    The ``done`` carry rides as int32 and finiteness tests avoid
+    ``isfinite``/``sinh``, so the function also lowers inside a Pallas
+    kernel should one ever trace it.
     """
     c_init = jnp.where(needs_iter, _f32(1.0), c0)
     done0 = (~needs_iter).astype(jnp.int32)
@@ -390,7 +334,7 @@ def _wave_cap_predict(c0, a, r, c_sw, tol: float, warmup: int, nodes=16):
     Validated within ~1.5% of exact f64 counts over the full (c0, a)
     range including knife-edge cap cases (round-3 precision lab).
 
-    Mosaic-safe: tanh/exp/log/select only, no sinh/isfinite/inf.
+    tanh/exp/log/select only, no sinh/isfinite/inf.
     Lanes whose ``r`` is not a Newton root (masked callers) produce
     garbage-but-finite values — callers gate on their own flags.
     """
@@ -435,8 +379,7 @@ def _wave_cap_predict(c0, a, r, c_sw, tol: float, warmup: int, nodes=16):
 
 def _modstall_static(sal, wave, x_wind, y_wind, airtemp, rh, p, pw, depth,
                      gate):
-    """The c-independent ModStall prologue (needs ``pow``, which Mosaic
-    does not lower — stays in XLA for the fused path)."""
+    """The c-independent ModStall prologue."""
     pwv = pw
     c0 = _f32(9.81 / (2 * math.pi)) * pwv
     shallow = (depth <= c0 * pwv) & (c0 != 0) & gate
@@ -453,35 +396,18 @@ def _modstall_static(sal, wave, x_wind, y_wind, airtemp, rh, p, pw, depth,
 
 
 def _modstall_core(c0, a, shallow, gate, wave, v, sst, airtemp, rh, tf,
-                   ha, tau, K, M, vsca: float, decay, decay_at=None,
-                   unrolls=(1, 1, 1), stack_heights: bool = False,
-                   warm_fp: int = 0, c_override=None):
+                   ha, tau, K, M, vsca: float, decay, c_override=None):
     """The c-dependent ModStall solve: wave fixed point, droplet RK, and
-    the per-height freezing-fraction fixed point (VI:218-326).  SHARED
-    between the jnp path and the fused Pallas kernel — Mosaic-safe (see
-    :func:`_mincog_core`).
-
-    ``stack_heights`` solves all ``number`` heights as ONE stacked
-    ``(number, ...)`` fixed-point problem instead of a sequential
-    ``fori_loop`` of while_loops: the per-height problems are independent
-    (only the static decay factor differs) and every height starts from
-    ``n = 0``, so per-lane trajectories are the same op sequence and the
-    while trip count becomes max-over-heights instead of
-    sum-over-heights.  Results agree to solver tolerance, not bitwise:
-    the 3-D lowering contracts FMAs differently than the 2-D one
-    (measured max |d| 2e-6 on random inputs; exit tol is 1e-5,
-    conformance tol 2e-3), and done lanes hold exactly either way.
-    This is the variable-trip-loop counterpart of MINCOG's warm-start
-    Newton (whose fixed-trip sweep gains nothing from stacking).  Kernel
-    path only: on the whole-array jnp path each iteration would pay
-    ``number`` x full-grid HBM traffic."""
+    the per-height freezing-fraction fixed point (VI:218-326), one
+    ``fori_loop`` body over heights so the whole-array traffic stays one
+    height wide."""
     number = len(decay)
     # MF_MODSTALL_ABLATE (trace-time env, comma-separated: fp, rk,
     # heights) stubs out solver stages for perf attribution ONLY —
-    # outputs are wrong with any ablation active (perf labs).
+    # outputs are wrong with any ablation active.
     ablate = set(filter(None, os.environ.get(
         "MF_MODSTALL_ABLATE", "").split(",")))
-    fp_u, rk_u, _ = _solver_unrolls(unrolls)
+    fp_u, rk_u, _ = _solver_unrolls()
     if "fp" in ablate:
         c = jnp.where(shallow, c0 * _f32(0.5), c0)
     elif c_override is not None:
@@ -491,11 +417,11 @@ def _modstall_core(c0, a, shallow, gate, wave, v, sst, airtemp, rh, tf,
         # isolation.  Never set on a production path.
         c = jnp.where(shallow, c_override, c0)
     else:
-        # wave FP stays at the exact 32-warmup even in the warm kernel:
-        # early-arming it was measured catastrophic for MINCOG (7e-2 of
-        # adversarial points >2e-3 — a cap misprediction zeroes c and
-        # with it the lane's whole icing rate) for <1 ms, and the same
-        # cap-to-skip amplification applies here
+        # the wave FP keeps its exact 32-iteration warmup: arming the
+        # projection earlier was measured catastrophic for MINCOG (7e-2
+        # of adversarial points >2e-3 — a cap misprediction zeroes c and
+        # with it the lane's whole icing rate), and the same cap-to-skip
+        # amplification applies here
         c = _wave_speed_fixed_point(c0, a, shallow, 10000, 1e-5,
                                     unroll=fp_u)
     vr = c - _f32(vsca)
@@ -528,10 +454,7 @@ def _modstall_core(c0, a, shallow, gate, wave, v, sst, airtemp, rh, tf,
     at = airtemp
     rhv = rh
     f1_air = _icing_f1(at)
-    if decay_at is None:
-        decay_arr = jnp.asarray(decay, _f32)
-        decay_at = lambda k: jax.lax.dynamic_index_in_dim(  # noqa: E731
-            decay_arr, k, keepdims=False)
+    decay_arr = jnp.asarray(decay, _f32)
     rw_base = _f32(6.46e-5) * wave * (vr * vr)
 
     def run_fp(rw, warmup=32):
@@ -606,8 +529,8 @@ def _modstall_core(c0, a, shallow, gate, wave, v, sst, airtemp, rh, tf,
 
         def n_body(state):
             # HOT LOOP: map + Newton only — no logs; the cap/escape
-            # predictions run ONCE post-loop (a 2.7x kernel step-time
-            # regression was measured with them in-loop)
+            # predictions run ONCE post-loop (in-loop they were
+            # measured several times slower)
             n, err_sw, j, done_i = state
             done = done_i != 0
             n1, B, floor = _map(n)
@@ -683,29 +606,15 @@ def _modstall_core(c0, a, shallow, gate, wave, v, sst, airtemp, rh, tf,
         n = jnp.where((di == 2) & (capped_c | capped_d), _f32(0.0), n)
         return jnp.clip(n, _f32(0.0), _f32(1.0))
 
-    if stack_heights:
-        rws = jnp.stack([rw_base * _f32(d) for d in decay]) * v
-        n = run_fp(rws)
-        terms = n * (rws / _f32(890.0)) * _f32(3600.0) * _f32(100.0)
-        # accumulate in height order so the sum is bit-identical to the
-        # sequential sweep (jnp.sum may tree-reduce)
-        ice = terms[0]
-        for k in range(1, number):
-            ice = ice + terms[k]
-    else:
-        # cold start every height (the early out-of-range escapes ARE
-        # reference semantics and happen on exact iterates); warm_fp
-        # arms the analytic projection after that many iterations
-        # instead of the exact path's 32 (see KERNEL_WARM_FP)
-        warmup = warm_fp if warm_fp else 32
+    # cold start every height (the early out-of-range escapes ARE
+    # reference semantics and happen on exact iterates)
+    def height_body(counter, ice):
+        rw = rw_base * jax.lax.dynamic_index_in_dim(
+            decay_arr, counter, keepdims=False) * v
+        n = run_fp(rw)
+        return ice + n * (rw / _f32(890.0)) * _f32(3600.0) * _f32(100.0)
 
-        def height_body(counter, ice):
-            rw = rw_base * decay_at(counter) * v
-            n = run_fp(rw, warmup=warmup)
-            return ice + n * (rw / _f32(890.0)) * _f32(3600.0) \
-                * _f32(100.0)
-
-        ice = jax.lax.fori_loop(0, number, height_body, jnp.zeros_like(v))
+    ice = jax.lax.fori_loop(0, number, height_body, jnp.zeros_like(v))
     return jnp.abs(ice / _f32(number))
 
 
@@ -790,7 +699,7 @@ def _bisection_lanes(fn, shape, a0: float, b0: float):
     b = jnp.full(shape, _f32(b0))
     ffa = fn(a)
     ffb = fn(b)
-    # kernel-safe sign-equality via int32 select (see _rtsafe_lanes)
+    # sign-equality via int32 select (see _rtsafe_lanes)
     sb0 = (ffb > 0).astype(jnp.int32)
     no_root = jnp.where(ffa > 0, sb0, 1 - sb0) != 0
     c = jnp.zeros(shape, _f32)
@@ -828,7 +737,7 @@ def regula_falsi_lanes(fn, a, b, eps, iters: int = 100):
     residual halved on consecutive retentions (the Illinois trick);
     exits on ``|b−a| < eps·|b+a|``, a sign-degenerate step, or 100
     iterations.  Sign-equality is spelled as an int32 select
-    (kernel-safe; see :func:`_rtsafe_lanes`)."""
+    (see :func:`_rtsafe_lanes`)."""
     a = jnp.asarray(a, _f32)
     b = jnp.asarray(b, _f32)
     eps = _f32(eps)
@@ -928,10 +837,8 @@ def _rtsafe_lanes(fn_grad, a, b, iters: int = _NEWTON_ITERS,
     """
     fa, _ = fn_grad(a)
     fb, _ = fn_grad(b)
-    # kernel-safe sign-equality: Mosaic cannot compare i1 vectors, and XLA
-    # folds `cast(p) == cast(q)` straight back to an i1 cmpi — spell
-    # "same sign" as a select on int32 instead (icing_fused.py traces this
-    # function inside the Pallas MINCOG tile)
+    # "same sign" as a select on int32 (XLA folds `cast(p) == cast(q)`
+    # straight back to an i1 compare)
     sa = (fa > 0).astype(jnp.int32)
     no_root = jnp.where(fb > 0, sa, 1 - sa) != 0
     eps = _f32(1e-6) * (b - a)
@@ -967,10 +874,8 @@ def _mincog_static(sal, wave, x_wind, y_wind, airtemp, rh, p, pw, depth,
                    vs: float, alpha: float, gate):
     """The c-independent MINCOG prologue: every plane that does NOT feed
     through the wave-speed fixed point (spray geometry VI:510-576, the
-    heat-transfer and humidity coefficients).  Split out so the fused
-    Pallas path (icing_fused.py) can run it under XLA — it needs
-    arcsin/sin/cos/pow, which stay outside the Mosaic kernel — and hand
-    :func:`_mincog_core` ready-made planes."""
+    heat-transfer and humidity coefficients), handed to
+    :func:`_mincog_core` as ready-made planes."""
     v = jnp.sqrt(x_wind**2 + y_wind**2)
     skip0 = (v < _f32(1.0)) | (wave < _f32(0.1))  # VI:479-482 => icing 0
 
@@ -1024,34 +929,21 @@ def _mincog_static(sal, wave, x_wind, y_wind, airtemp, rh, p, pw, depth,
 
 def _mincog_core(c0, a, shallow, skip0, wave, pw, depth, v, sst, sal,
                  airtemp, rh, ha, he, ea, M, K, tau, vd,
-                 vsca: float, alt: int, decay, stack_heights: bool = False,
-                 decay_at=None, unrolls=(1, 1, 1), warm_newton: int = 0):
+                 vsca: float, alt: int, decay):
     """The c-dependent MINCOG solve: wave-speed fixed point, droplet RK,
-    and the per-height Newton sweep (VI:489-675).  SHARED between the jnp
-    path and the fused Pallas kernel (icing_fused.py traces this exact
-    function inside a VMEM tile) — every op here must stay Mosaic-safe:
-    no arcsin/pow, masks carried as int32, sinh spelled with exp.
-
-    ``decay`` is the static tuple of per-height LWC decay factors
-    (:func:`_mincog_decay`).  ``stack_heights`` selects the looping
-    structure for the height sweep: ``False`` (jnp path) iterates one
-    ``fori_loop`` body over heights so whole-array HBM traffic stays one
-    height wide; ``True`` (the VMEM kernel) solves ALL heights as one
-    stacked ``(number, ...)`` Newton problem — the per-height problems
-    are independent (only ``rw`` differs), so stacking turns
-    ``number x iters`` sequential loop steps into ``iters`` and the
-    Mosaic per-step loop overhead stops dominating the kernel
-    (PERF.md "Mincog cost attribution").  Identical arithmetic per lane
-    either way.
+    and the per-height Newton sweep (VI:489-675).  ``decay`` is the
+    static tuple of per-height LWC decay factors (:func:`_mincog_decay`);
+    one ``fori_loop`` body iterates over heights so the whole-array
+    traffic stays one height wide.
 
     ``MF_MINCOG_ABLATE`` (trace-time env, comma-separated: fp, rk,
     newton) stubs out solver stages for perf attribution ONLY — outputs
-    are wrong with any ablation active (tools/perf_lab_mincog_fused.py).
+    are wrong with any ablation active.
     """
     number = len(decay)
     ablate = set(filter(None, os.environ.get(
         "MF_MINCOG_ABLATE", "").split(",")))
-    fp_u, rk_u, nt_u = _solver_unrolls(unrolls)
+    fp_u, rk_u, nt_u = _solver_unrolls()
     if "fp" in ablate:
         c = jnp.where(shallow, c0 * _f32(0.5), c0)
     else:
@@ -1097,7 +989,7 @@ def _mincog_core(c0, a, shallow, skip0, wave, pw, depth, v, sst, sal,
     else:
         lam = c * pw
         dl = _f32(4.0 * math.pi) * depth / lam
-        # sinh via exp (Mosaic has no sinh); overflow behavior matches:
+        # sinh via exp; overflow behavior matches:
         # dl/sinh(dl) -> 0 either way once exp saturates
         sh = (_exp_f32(dl) - _exp_f32(-dl)) * _f32(0.5)
         cg = (c / _f32(2.0)) * (_f32(1.0) + dl / sh)
@@ -1160,48 +1052,17 @@ def _mincog_core(c0, a, shallow, skip0, wave, pw, depth, v, sst, sal,
         return n, carry
 
     rw_base = lwc0 * vd * nf * tdur
-    if stack_heights:
-        rws = jnp.stack([rw_base * _f32(d) for d in decay])
-        n, _ = solve_n(rws)
-        icing = jnp.sum(rws * jnp.clip(n, _f32(0.0), _f32(1.0)), axis=0)
-    else:
-        # traced-constant decay table (or the caller's decay_at — the
-        # kernel's SMEM prefetch read: pallas rejects captured array
-        # constants); one fori_loop body so the graph stays `iters` x
-        # 1-height wide (not `number` unrolled solvers)
-        if decay_at is None:
-            decay_arr = jnp.asarray(decay, _f32)
-            decay_at = lambda k: jax.lax.dynamic_index_in_dim(  # noqa: E731
-                decay_arr, k, keepdims=False)
+    # one fori_loop body so the graph stays `iters` x 1-height wide (not
+    # `number` unrolled solvers)
+    decay_arr = jnp.asarray(decay, _f32)
 
-        if warm_newton and not use_bisect and "newton" not in ablate:
-            # heights solve sequentially, so each height's Newton warm-
-            # starts from the previous height's root (only rw changes,
-            # by the constant decay factor): `warm_newton` iterations
-            # instead of a cold secant init + _NEWTON_ITERS.  Kernel
-            # path only — results agree to solver tolerance (the
-            # fused-vs-jnp tests bound it), not bitwise.
-            rw0 = rw_base * _f32(decay[0])
-            n0, x_prev = solve_n(rw0)
-            icing0 = rw0 * jnp.clip(n0, _f32(0.0), _f32(1.0))
+    def height_body(counter, icing):
+        rw = rw_base * jax.lax.dynamic_index_in_dim(decay_arr, counter,
+                                                    keepdims=False)
+        n, _ = solve_n(rw)
+        return icing + rw * jnp.clip(n, _f32(0.0), _f32(1.0))
 
-            def height_body(counter, state):
-                icing, x_prev = state
-                rw = rw_base * decay_at(counter)
-                n, x_prev = solve_n(rw, x0=x_prev, iters=warm_newton)
-                return icing + rw * jnp.clip(n, _f32(0.0), _f32(1.0)), \
-                    x_prev
-
-            icing, _ = jax.lax.fori_loop(1, number, height_body,
-                                         (icing0, x_prev))
-        else:
-            def height_body(counter, icing):
-                rw = rw_base * decay_at(counter)
-                n, _ = solve_n(rw)
-                return icing + rw * jnp.clip(n, _f32(0.0), _f32(1.0))
-
-            icing = jax.lax.fori_loop(0, number, height_body,
-                                      jnp.zeros_like(v))
+    icing = jax.lax.fori_loop(0, number, height_body, jnp.zeros_like(v))
 
     out = jnp.abs(icing / _f32(number)) * _f32(3600.0 * 100.0 / 890.0)
     return jnp.where(skip, _f32(0.0), out)

@@ -7,7 +7,7 @@ plevelhum (400), pleveldz2tmean (466), plevelducting (597), hleveltemp
 hlevelpressure (1276), aleveltemp (1310), alevelthe (1355), alevelhum
 (1394), alevelducting (1460), seaSoundSpeed (1555).
 
-TPU-first design: the reference triplicates every operator across the
+Design: the reference triplicates every operator across the
 p/h/a level families, differing only in how per-point pressure is obtained
 (scalar, ``alevel + blevel*ps``, or a field).  Here the hybrid and generic
 model-level ("alevel") variants share one vectorized core taking a pressure
@@ -361,8 +361,8 @@ def sea_sound_speed(t: Field, s: Field, z: float, compute: int) -> Field:
     """Sea-water sound speed, D. Ross SACLANTCEN SM-107 formula
     (FieldCalculations.cc:1555-1602).  compute: 1 T in Celsius, 2 in Kelvin.
 
-    The reference evaluates intermediates in float64; TPU f64 is emulated and
-    slow, so this computes in float32 — conformance tolerance ~1e-3 m/s on a
+    The reference evaluates intermediates in float64; this computes in
+    float32 like the rest of the framework — conformance tolerance ~1e-3 m/s on a
     ~1450 m/s result (documented in the conformance spec).
     """
     require(compute in (1, 2), f"seaSoundSpeed: bad compute {compute}")

@@ -5,7 +5,7 @@ showalterIndex (872), boydenIndex (973), sweatIndex (1016).
 
 The showalter moist-adiabat adjustment is the reference's fixed 7-iteration
 per-point loop (cc:948-960) with a data-dependent early break when the
-lifted parcel leaves the saturation table; on TPU that becomes 7 unrolled
+lifted parcel leaves the saturation table; here that becomes 7 unrolled
 masked iterations — identical results, no per-point control flow.
 """
 

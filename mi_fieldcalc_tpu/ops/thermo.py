@@ -28,43 +28,14 @@ __all__ = [
 
 _f32 = jnp.float32
 
-#: Trace-time memo for :func:`esat_table`, keyed by ``id(tk)`` — a suite
-#: kernel evaluating many conversions of the SAME temperature tracer
-#: (ops/fused_suite.py) otherwise re-derives the table lookup per
-#: conversion; XLA CSE removes the duplicates but Mosaic's does not
-#: reliably.  Installed via :class:`esat_memo` around a single trace.
-_ESAT_MEMO = None
-
-
-class esat_memo:
-    """Context manager enabling the :func:`esat_table` trace-time memo
-    (single-threaded tracing; used by fused kernels)."""
-
-    def __enter__(self):
-        global _ESAT_MEMO
-        self._saved, _ESAT_MEMO = _ESAT_MEMO, {}
-
-    def __exit__(self, *exc):
-        global _ESAT_MEMO
-        _ESAT_MEMO = self._saved
-
-
 def esat_table(tk):
     """Saturation vapor pressure e_w(T) from the table; T in Kelvin.
 
     Returns ``(et, ok, x, l)`` so dependent kernels can reuse the table
     coordinate for the dewpoint inverse.
     """
-    if _ESAT_MEMO is not None and id(tk) in _ESAT_MEMO:
-        return _ESAT_MEMO[id(tk)]
     x, l = ewt_index(jnp.asarray(tk, _f32) - t0)
-    ok = ewt_defined(l)
-    out = (ewt_value(x, l), ok, x, l)
-    if _ESAT_MEMO is not None:
-        # hold a reference to the key tracer so id() stays unique
-        _ESAT_MEMO[id(tk)] = out
-        _ESAT_MEMO[("key", id(tk))] = tk
-    return out
+    return ewt_value(x, l), ewt_defined(l), x, l
 
 
 def t_thesat(tk, p, pi):

@@ -1,11 +1,11 @@
 """Vertical interpolation: hybrid/model levels -> pressure or height levels.
 
 The reference library has no vertical interpolation (its operators act on
-one level at a time; callers interpolate elsewhere).  The TPU-native
-framework's flagship workload (BASELINE.json config 4: "hybrid/pressure
-level interpolation + derived fields over a 137-level column stack")
-needs it as a first-class, mask-aware batched op, so it is built here the
-TPU way:
+one level at a time; callers interpolate elsewhere).  The framework's
+flagship workload (BASELINE.json config 4: "hybrid/pressure level
+interpolation + derived fields over a 137-level column stack") needs it
+as a first-class, mask-aware batched op, so it is built here as
+vectorized array code:
 
 * the per-column bracket search over a monotone pressure profile is a
   fused compare-count along the (small) level axis — no gathers, no
@@ -47,8 +47,7 @@ def _interp_one(fv, fm, pv, pm, lnp, pt, log_p):
     ``fv/fm``: [nlev, ny, nx] values/mask(int32); ``pv``: pressures;
     ``lnp``: precomputed ln(pv).  Returns (out, mask_bool) of [ny, nx].
     Vmapped over a target vector by :func:`plevel_interp` — one compact
-    batched program instead of ``ntargets`` unrolled reductions (which
-    compiled catastrophically slowly on the remote TPU compiler).
+    batched program instead of ``ntargets`` unrolled reductions.
     """
     nlev = fv.shape[0]
     ptf = jnp.asarray(pt, _f32)
@@ -109,11 +108,8 @@ def plevel_interp(f: Field, p: Field, targets: Sequence[float],
     lnp = jnp.log(jnp.where(pv > 0, pv, _f32(1.0)))
 
     tgt = jnp.asarray([float(t) for t in targets], _f32)
-    # vmap over targets: batched level reductions.  (Compile-time note:
-    # the TPU compiler takes minutes on this op at operational shapes in
-    # EVERY formulation tried — unrolled python loop 344 s, lax.map 263 s,
-    # lax.scan over levels 589 s, vmap 111 s — so vmap wins and the
-    # persistent compilation cache absorbs the one-time cost.)
+    # vmap over targets: batched level reductions (chip_smoke.py prints
+    # the compile time at operational shapes)
     out, mask = jax.vmap(
         lambda pt: _interp_one(fv, fm, pv, pmask, lnp, pt, log_p))(tgt)
     return Field(out, mask)

@@ -4,7 +4,7 @@ Reference: FieldCalculations.cc — neighbourProbFunctions (2862, summed-area
 -table box mean) and neighbourFunctions (2955, strided window stats with
 block fill).
 
-TPU design notes:
+Design notes:
 
 * the summed-area table becomes two ``jnp.cumsum`` passes — used ONLY
   for the 0/1 indicator fields (probability modes), where the prefix
@@ -216,8 +216,7 @@ def neighbour_functions(f: Field, constants: Sequence[float],
 
     # map each output point to its sample point (strided block fill).
     # Every block is a contiguous step x step cell around a sample, so the
-    # fill is a strided slice + repeat — no gather (TPU gathers on full
-    # grids cost ~10x the window statistic itself).  Coordinates are
+    # fill is a strided slice + repeat — no full-grid gather.  Coordinates are
     # GLOBAL: under run_sharded the block grid must not restart at shard
     # seams, so the sharded form selects among ``step`` rolled copies per
     # axis by the (traced) phase of the global block grid instead of the

@@ -2,9 +2,9 @@
 
 The reference library's only parallelism is OpenMP threads over per-point
 loops (openmp_tools.h:42-45); it has no distributed backend at all
-(SURVEY §2.7).  The TPU-native equivalent is spatial domain decomposition
+(SURVEY §2.7).  Here the equivalent is spatial domain decomposition
 of the ``(ny, nx)`` grid over a 2-D device mesh, with radius-R halo rings
-exchanged over ICI via ``jax.lax.ppermute`` inside ``shard_map``, and the
+exchanged via ``jax.lax.ppermute`` inside ``shard_map``, and the
 reference's ``fillEdges`` boundary treatment applied only at *physical*
 domain edges — never at shard seams.
 """

@@ -1,19 +1,18 @@
 """Multi-host runtime: initialization and mesh construction across hosts.
 
 The reference is a single-process library (OpenMP threads only — SURVEY
-§2.7); its TPU-native equivalent spans hosts with the JAX distributed
-runtime: every host runs the same program, ``jax.distributed.initialize``
-wires the processes into one global device set, and the ``(lev, gy, gx)``
-mesh from :func:`..parallel.mesh.grid_mesh` then covers all chips in the
-slice — ``shard_map`` collectives ride ICI within the slice and DCN
-across slices with no further code changes (the halo ``ppermute`` rings
-and definedness ``psum`` reductions are laid out by XLA).
+§2.7); here a run can span processes with the JAX distributed runtime:
+every process runs the same program, ``jax.distributed.initialize``
+wires them into one global device set, and the ``(lev, gy, gx)`` mesh
+from :func:`..parallel.mesh.grid_mesh` then covers every device — the
+halo ``ppermute`` rings and definedness reductions are laid out by XLA
+with no further code changes.
 
-Typical multi-host entry::
+Typical multi-process entry::
 
     from mi_fieldcalc_tpu.parallel import distributed, grid_mesh
-    distributed.initialize()              # no-op on a single host
-    mesh = grid_mesh(grid_shape=(ny, nx))  # all chips; padding-optimal split
+    distributed.initialize("host0:1234", num_processes=2, process_id=i)
+    mesh = grid_mesh(grid_shape=(ny, nx))  # all devices
     out = derived_fields_fused_sharded(mesh, *fields)
 
 Per-host I/O: each host feeds only its local shard via
@@ -35,42 +34,22 @@ _initialized = False
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
-    """Join the multi-host JAX runtime; safe no-op on a single host.
+    """Join the multi-process JAX runtime; a no-op for one process.
 
-    With no arguments, relies on the TPU environment's auto-detection
-    (the standard path on Cloud TPU slices); arguments are passed through
-    to ``jax.distributed.initialize`` for manual clusters.
+    With no arguments nothing is joined (single-process use).  A cluster
+    is described explicitly: ``coordinator_address`` (``host:port`` of
+    process 0), ``num_processes`` and this ``process_id`` are passed to
+    ``jax.distributed.initialize``, and a failure there is raised.
     """
     global _initialized
-    import jax
-
     if _initialized:
         return
-    # Do NOT consult jax.process_count() here: it initializes the XLA
-    # backend, after which jax.distributed.initialize() unconditionally
-    # raises — and on a multi-host slice the pre-init count reads 1, so
-    # the old guard marked the runtime initialized without ever joining
-    # and every host silently built a local-only mesh.  Call through and
-    # let the runtime auto-detect: on single-process environments (no
-    # cluster env, no coordinator) detection fails and we record the
-    # single-host no-op; a backend-already-initialized error in THAT
-    # case is also benign single-host use (e.g. tests that touched jax
-    # first).
-    try:
+    if (coordinator_address is not None or num_processes is not None
+            or process_id is not None):
+        import jax
         jax.distributed.initialize(coordinator_address=coordinator_address,
                                    num_processes=num_processes,
                                    process_id=process_id)
-    except Exception:
-        if (coordinator_address is not None or num_processes is not None
-                or process_id is not None):
-            raise        # explicit cluster arguments: failure is real
-        import os
-        if os.environ.get("TPU_WORKER_HOSTNAMES", "").count(",") > 0:
-            # the environment says this IS a multi-host slice: swallowing
-            # the failure would leave every host on a local-only mesh
-            raise
-        # no-arg single-host path (CPU tests, one-host TPU): nothing to
-        # join — auto-detection raising is the expected outcome
     _initialized = True
 
 

@@ -1,19 +1,20 @@
-"""Sharded execution of the fused Pallas pipeline kernel.
+"""Sharded execution of the derived-field pipelines.
 
-The single-chip flagship path (:func:`mi_fieldcalc_tpu.ops.fused.
-derived_fields_fused`) runs one Pallas program per chip; on a
+The one-device path (:func:`mi_fieldcalc_tpu.ops.fused.
+derived_fields_fused`) runs one kernel launch per device; on a
 ``(lev, gy, gx)`` mesh each shard runs the SAME kernel on its local block
-padded with a radius-2 halo ring exchanged over ICI
-(:func:`..parallel.halo.halo_exchange`), with the kernel's physical-edge
-``fillEdges`` selects driven by the shard's *global* grid offsets — so
-boundary patches fire only on shards that touch the domain edge, never at
-shard seams.  Outputs are cropped by the halo and stay sharded.
+padded with a radius-2 halo ring (:mod:`..parallel.halo`; XLA hands the
+``ppermute`` collectives to NCCL), with the kernel's physical-edge fills
+driven by the shard's *global* grid offsets — so boundary patches fire
+only on shards that touch the domain edge, never at shard seams.  The
+kernel writes only the shard's own rows and columns, so no crop follows.
 
-This is the production multi-chip layout: level-batch parallelism over
-``lev`` (no communication) times spatial decomposition over ``(gy, gx)``
-(one radius-2 ``ppermute`` ring per input, overlapped with compute by
-XLA's scheduler).  Equivalence with the unsharded kernel is tested on the
-8-device CPU mesh in tests/test_parallel_fused.py.
+Level-batch parallelism over ``lev`` needs no communication; the spatial
+decomposition over ``(gy, gx)`` exchanges one packed halo ring per step.
+The isobaric and ensemble pipelines run their jnp form per shard
+(:func:`..parallel.halo.run_sharded`), as they do on one device.
+Equivalence with the unsharded paths is tested on a virtual CPU mesh in
+tests/test_parallel_fused.py.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ except ImportError:  # pragma: no cover
     from jax.experimental.shard_map import shard_map
 
 from ..field import Field
-from ..ops.fused import derived_fields_fused
+from ..ops.fused import DEFAULT_BLOCK, derived_fields_fused
 from .mesh import partition_spec
 
 __all__ = ["derived_fields_fused_sharded", "derived_fields_isobaric_sharded",
@@ -41,707 +42,193 @@ __all__ = ["derived_fields_fused_sharded", "derived_fields_isobaric_sharded",
 RADIUS = 2
 
 
+def _spatial(mesh: Mesh):
+    names = mesh.axis_names
+    return (mesh.shape["gy"] if "gy" in names else 1,
+            mesh.shape["gx"] if "gx" in names else 1)
+
+
+def _require_local_rows(mesh: Mesh, ny: int, nx: int):
+    """Each shard must hold at least the halo radius plus one row and
+    column of its own."""
+    gy, gx = _spatial(mesh)
+    if ny // gy <= RADIUS or nx // gx <= RADIUS:
+        raise ValueError(
+            f"sharded pipeline needs more than {RADIUS} local rows and "
+            f"columns per shard: ({ny}, {nx}) over (gy={gy}, gx={gx})")
+
+
+def _shard_kernel(mesh: Mesh, nyg: int, nxg: int, interpret: bool,
+                  all_defined: bool, block, tk, q, u, v, ps, al, bl, xm,
+                  ym):
+    """Inside ``shard_map``: exchange the halo ring of every array the
+    kernel indexes, then run the kernel on the padded local block with
+    its output window set to the shard's own rows and columns."""
+    from .halo import packed_exchange_cols, packed_exchange_rows
+    names = mesh.axis_names
+    gy, gx = _spatial(mesh)
+    hy, hx = (RADIUS if gy > 1 else 0), (RADIUS if gx > 1 else 0)
+    fields = (tk, q, u, v, ps)
+    flat = [f.values for f in fields]
+    if not all_defined:
+        # masks ride as int8: bool ppermute support varies by backend
+        flat += [f.mask.astype(jnp.int8) for f in fields]
+    flat += [xm, ym]
+    if hy:
+        flat = packed_exchange_rows(flat, hy, mesh)
+    if hx:
+        flat = packed_exchange_cols(flat, hx, mesh)
+    vals = flat[:5]
+    masks = [None] * 5 if all_defined else flat[5:10]
+    tkp, qp, up, vp, psp = (Field(a, m) for a, m in zip(vals, masks))
+    ny_loc, nx_loc = tk.values.shape[-2:]
+    iy = lax.axis_index("gy") if "gy" in names else 0
+    ix = lax.axis_index("gx") if "gx" in names else 0
+    offs = jnp.stack([iy * ny_loc - hy, ix * nx_loc - hx]).astype(jnp.int32)
+    return derived_fields_fused(
+        tkp, qp, up, vp, psp, al, bl, flat[-2], flat[-1], None,
+        interpret=interpret, global_shape=(nyg, nxg), grid_offsets=offs,
+        out_window=(hy, hx, ny_loc, nx_loc), stacked=True,
+        all_defined=all_defined, block=block)
+
+
+def _maps(a, ny, nx):
+    return jnp.broadcast_to(jnp.asarray(a, jnp.float32), (ny, nx))
+
+
+def _stacked_specs(mesh: Mesh, ndim: int):
+    from jax.sharding import PartitionSpec
+    from ..models.pipeline import DerivedFieldsStacked
+    spec = PartitionSpec(None, *partition_spec(ndim, mesh))
+    return DerivedFieldsStacked(values=spec, masks=spec)
+
+
 def derived_fields_fused_sharded(mesh: Mesh, tk: Field, q: Field, u: Field,
                                  v: Field, ps: Field, alevel, blevel,
-                                 xmapr, ymapr, fcoriolis,
+                                 xmapr, ymapr, fcoriolis=None,
                                  interpret: bool = False,
-                                 overlap: bool = False,
                                  global_shape=None,
                                  stacked: bool = False,
-                                 all_defined: bool = False):
-    """Run the fused pipeline kernel per-shard over ``mesh``.
+                                 all_defined: bool = False,
+                                 block=DEFAULT_BLOCK):
+    """Run the pipeline kernel per shard over ``mesh``.
 
-    Arguments as :func:`..models.pipeline.derived_fields`; ``xmapr`` /
-    ``ymapr`` must be ``(ny, nx)`` arrays (map factors are per-point
-    fields in any real projection).  Returns a sharded
-    :class:`DerivedFields`.
-
-    ``overlap=True`` hides the halo latency on any (gy, gx) spatial
-    mesh: the kernel runs on the *unpadded* tile-aligned local block
-    concurrently with the seam-strip ``ppermute``\\ s, and only the seam
-    bands (2 rows / 2 columns per interior side) are recomputed from
-    strip kernels and patched in — the interior pass has no data
-    dependence on any collective, so XLA overlaps them.  On ``gx > 1``
-    meshes this also keeps the hot kernel off the ragged ``nx_loc + 4``
-    lane extent that the non-overlap path's x-halo concat creates.
-
-    ``global_shape`` is the logical ``(ny, nx)`` when the global arrays
-    are padded to :func:`..layout.padded_shape_sharded` extents (masks
-    ``False`` on dead rows/lanes).  Tile-aligned locals avoid the ~2x
-    ragged-DMA penalty (layout.py); y-halos are one 8-row tile wide and
-    ``gx == 1`` meshes exchange no x-halo, so every per-shard transfer
-    stays aligned.  Outputs come back padded (trim at the host boundary).
-
-    ``stacked=True`` returns the 2-buffer SoA
-    :class:`..models.pipeline.DerivedFieldsStacked` layout instead of 12
-    per-field Fields — the per-field output layout is most of the
-    shard_map premium on one device (PERF.md), and file writers usually
-    want the planes contiguous anyway.
-
-    ``all_defined=True`` asserts every logical input point is defined
-    and runs the kernel's ALL_DEFINED fast path per shard (~23% step
-    time single-chip, PERF.md): no mask planes are exchanged — the
-    packed halo legs carry only f32 strips, halving the collective
-    count (one ppermute per direction instead of one per (direction,
-    dtype)) — and only the 2 data-dependent output mask planes are
-    written.  Works with ``overlap=True`` (mask-free seam strips).
+    Arguments as :func:`..models.pipeline.derived_fields`; map factors
+    are broadcast to ``(ny, nx)``.  ``global_shape`` is the logical
+    ``(ny, nx)`` when the global arrays carry dead trailing rows/columns
+    (e.g. padded to a multiple of the mesh); edge fills fire at the
+    logical boundary.  Returns a sharded :class:`DerivedFields`, or the
+    :class:`DerivedFieldsStacked` layout with ``stacked=True``.
+    ``all_defined=True`` asserts every input point is defined: no mask
+    is exchanged or read, and the kernel writes its 2 gate planes.
     """
-    nyg, nxg = (tk.values.shape[-2:] if global_shape is None
-                else global_shape)
-    _require_local_rows(mesh, tk.values.shape[-2])
+    del fcoriolis  # none of the 12 outputs uses it
+    nlev, ny, nx = tk.values.shape
+    nyg, nxg = global_shape if global_shape is not None else (ny, nx)
+    _require_local_rows(mesh, ny, nx)
     args = (tk, q, u, v, ps, jnp.asarray(alevel, jnp.float32),
-            jnp.asarray(blevel, jnp.float32),
-            jnp.asarray(xmapr, jnp.float32), jnp.asarray(ymapr, jnp.float32),
-            jnp.asarray(fcoriolis, jnp.float32))
-    leaves = tuple(jax.tree_util.tree_flatten(args)[0])
-    if overlap:
-        fn = _sharded_fn_overlap(mesh, (nyg, nxg), bool(interpret),
-                                 bool(stacked), bool(all_defined))
-    else:
-        fn = _sharded_fn(mesh, (nyg, nxg), bool(interpret), bool(stacked),
-                         bool(all_defined))
-    return fn(leaves)
-
-
-def _halo_widths(mesh: Mesh):
-    """(HY, HX): y-halos are one 8-row tile (keeps tile-aligned locals
-    aligned after the halo concat; the seam strips ride ICI either way),
-    x-halos the minimal stencil radius, and none where the mesh does not
-    decompose that axis (lane rolls + logical-edge fills already handle
-    the physical boundary exactly like the single-device kernel)."""
-    names = mesh.axis_names
-    gy = mesh.shape["gy"] if "gy" in names else 1
-    gx = mesh.shape["gx"] if "gx" in names else 1
-    return (8 if gy > 1 else 0), (RADIUS if gx > 1 else 0)
-
-
-def _require_local_rows(mesh: Mesh, nyg: int):
-    """The 8-row y-halo strips must fit the local block: a deep gy mesh
-    on a modest grid otherwise dies deep in the halo packer with a
-    cryptic slice error — name the real constraint (ny >= 8 * gy)."""
-    gy = mesh.shape["gy"] if "gy" in mesh.axis_names else 1
-    if gy > 1 and nyg < 8 * gy:
-        raise ValueError(
-            f"sharded pipeline needs >= 8 local rows per gy shard: "
-            f"global ny={nyg} over gy={gy} gives {nyg // gy}")
-
-
-def _exchange_all(arrays, mesh: Mesh, hy: int, hx: int):
-    """Halo-exchange MANY arrays with independent per-axis widths
-    (0 = skip).  The y-leg packs every array into one ppermute per
-    (direction, dtype) — 4 collectives for the whole 13-array pipeline
-    step instead of 26 (halo.packed_strip_exchange); the x-leg (gx > 1
-    meshes only) packs the same way on the lane axis — 8 collectives
-    total on a 2-D mesh.  Masks must already ride as int8."""
-    from .halo import packed_exchange_cols, packed_exchange_rows
-    arrays = list(arrays)
-    if hy:
-        arrays = packed_exchange_rows(arrays, hy, mesh)
-    if hx:
-        arrays = packed_exchange_cols(arrays, hx, mesh)
-    return arrays
+            jnp.asarray(blevel, jnp.float32), _maps(xmapr, ny, nx),
+            _maps(ymapr, ny, nx))
+    st = _sharded_fn(mesh, (nyg, nxg), bool(interpret), bool(all_defined),
+                     tuple(block))(args)
+    return st if stacked else st.as_fields()
 
 
 @functools.lru_cache(maxsize=64)
 def _sharded_fn(mesh: Mesh, global_shape, interpret: bool,
-                stacked: bool = False, all_defined: bool = False):
+                all_defined: bool, block):
     """One jitted shard_map program per (mesh, logical grid) — repeat
     calls dispatch the cached executable instead of re-tracing."""
     nyg, nxg = global_shape
-    names = mesh.axis_names
-    HY, HX = _halo_widths(mesh)
 
-    def body(leaves):
-        tk, q, u, v, ps, al, bl, xm, ym, fc = \
-            jax.tree_util.tree_unflatten(_TREEDEF, leaves)
+    def body(args):
+        return _shard_kernel(mesh, nyg, nxg, interpret, all_defined, block,
+                             *args)
 
-        if all_defined:
-            # no mask halos: one dtype per packed leg -> one ppermute
-            # per direction; the kernel never reads masks
-            flat = [f.values for f in (tk, q, u, v, ps)] + [xm, ym, fc]
-            flat = _exchange_all(flat, mesh, HY, HX)
-            tkp, qp, up, vp, psp = (Field(v, None) for v in flat[:5])
-            xmp, ymp, fcp = flat[5:]
-        else:
-            # masks ride through int8: bool ppermute support varies
-            flat = []
-            for f in (tk, q, u, v, ps):
-                flat += [f.values, f.mask.astype(jnp.int8)]
-            flat += [xm, ym, fc]
-            flat = _exchange_all(flat, mesh, HY, HX)
-            tkp, qp, up, vp, psp = (Field(flat[2 * i], flat[2 * i + 1] != 0)
-                                    for i in range(5))
-            xmp, ymp, fcp = flat[10:]
-
-        ny_loc, nx_loc = tk.values.shape[-2:]
-        gy = mesh.shape["gy"] if "gy" in names else 1
-        # trailing local rows that are not logical interior: the halo
-        # plus (bottom shard) the global padding's dead rows
-        dead = ny_loc * gy - nyg
-        iy = lax.axis_index("gy") if "gy" in names else 0
-        ix = lax.axis_index("gx") if "gx" in names else 0
-        offs = jnp.stack([iy * ny_loc - HY, ix * nx_loc - HX]
-                         ).astype(jnp.int32)
-
-        out = derived_fields_fused(tkp, qp, up, vp, psp, al, bl, xmp, ymp,
-                                   fcp, interpret=interpret,
-                                   stacked=stacked,
-                                   all_defined=all_defined,
-                                   global_shape=(nyg, nxg),
-                                   grid_offsets=offs,
-                                   halo_rows=HY + dead)
-        return jax.tree_util.tree_map(
-            lambda a: a[..., HY:HY + ny_loc, HX:HX + nx_loc], out)
-
-    in_specs, out_specs = _pipeline_specs(mesh, stacked, all_defined)
+    fld3 = Field(partition_spec(3, mesh), partition_spec(3, mesh))
+    fld2 = Field(partition_spec(2, mesh), partition_spec(2, mesh))
+    in_specs = ((fld3,) * 4 + (fld2,) + (partition_spec(1, mesh),) * 2
+                + (partition_spec(2, mesh),) * 2)
     return jax.jit(shard_map(body, mesh=mesh, in_specs=(in_specs,),
-                             out_specs=out_specs, check_vma=False))
-
-
-# flat structure of the 10 pipeline arguments (5 Fields + 5 arrays)
-_TREEDEF = jax.tree_util.tree_structure(
-    (Field(0, 0), Field(0, 0), Field(0, 0), Field(0, 0), Field(0, 0),
-     0, 0, 0, 0, 0))
-
-
-def _pipeline_specs(mesh: Mesh, stacked: bool = False,
-                    all_defined: bool = False):
-    """(in_specs, out_specs) for the 13-leaf pipeline argument tree and
-    the DerivedFields result — ONE definition for all three shard_map
-    builders, kept next to _TREEDEF whose leaf order it encodes:
-    (values, mask) x tk,q,u,v [3-D], ps [2-D], alevel/blevel [1-D],
-    xmapr/ymapr/fcoriolis [2-D].  ``stacked`` swaps the result spec for
-    the 2-array SoA layout (leading field-plane axis unsharded);
-    ``stacked + all_defined`` adds the spatial spec of the
-    ``[1, ny, nx]`` logical-region plane (models/pipeline.py)."""
-    from jax.sharding import PartitionSpec
-    from ..models.pipeline import DerivedFields, DerivedFieldsStacked
-    if stacked:
-        p3 = partition_spec(3, mesh)
-        sspec = PartitionSpec(None, *p3)
-        rspec = (PartitionSpec(None, p3[-2], p3[-1]) if all_defined
-                 else None)
-        out_specs = DerivedFieldsStacked(values=sspec, masks=sspec,
-                                         region=rspec)
-    else:
-        out_spec = partition_spec(3, mesh)
-        out_specs = DerivedFields(*[Field(out_spec, out_spec)] * 12)
-    in_specs = tuple(partition_spec(nd, mesh)
-                     for nd in [3] * 8 + [2] * 2 + [1] * 2 + [2] * 3)
-    return in_specs, out_specs
+                             out_specs=_stacked_specs(mesh, 3),
+                             check_vma=False))
 
 
 def derived_fields_isobaric_sharded(mesh: Mesh, tk: Field, q: Field,
                                     u: Field, v: Field, ps: Field,
                                     alevel, blevel, xmapr, ymapr, fcoriolis,
-                                    plevels, interpret: bool = False,
-                                    global_shape=None,
-                                    overlap: bool = False,
-                                    all_defined: bool = False):
-    """Sharded 3-D isobaric pipeline (BASELINE config 5's per-host program):
-    hybrid -> pressure-level interpolation followed by the 12-output
-    derived-field kernel, domain-decomposed over ``mesh``.
+                                    plevels):
+    """Sharded 3-D isobaric pipeline: hybrid -> pressure-level
+    interpolation followed by the 12 derived fields, domain-decomposed
+    over ``mesh`` with :func:`..parallel.halo.run_sharded` (jnp under
+    XLA: on one H100 the kernel tail measured slower than XLA's fused
+    pipeline, PERF.md).  Columns never cross the (gy, gx) decomposition;
+    level parallelism does not apply (columns span all levels), so the
+    mesh must have ``lev == 1``.
 
-    ``overlap=True`` routes the post-interpolation stage through the
-    seam-strip machinery (:func:`_overlap_core`): the interior pipeline
-    kernel has no data dependence on the halo collectives, so XLA runs
-    the ICI exchange behind it, and on ``gx > 1`` meshes the hot kernel
-    streams the tile-aligned local block instead of a ragged
-    ``nx_loc + 4``-lane one.
-
-    The column interpolation is local to each shard (columns never cross
-    the (gy, gx) decomposition), so the ONLY communication is the
-    radius-2 halo ring on the 4 *interpolated* stacks — exchanged on the
-    (ntarget, ny, nx) fields, which is cheaper than exchanging the
-    (nlev, ny, nx) inputs whenever ntarget < nlev (11 vs 137 on the
-    north-star stack).  Level parallelism does not apply (columns span
-    all levels): the mesh must have ``lev == 1``.
-
-    Arguments as :func:`..models.pipeline.derived_fields_isobaric`;
-    ``xmapr``/``ymapr``/``fcoriolis`` must be ``(ny, nx)`` arrays.
+    Arguments as :func:`..models.pipeline.derived_fields_isobaric`.
     Returns a sharded :class:`DerivedFields` on the ``plevels`` stack.
-
-    ``all_defined=True`` asserts every INPUT point is defined: the
-    column-interpolation kernel skips its 5 input mask planes and emits
-    ONE shared bracket-gate mask, and the non-overlap halo leg
-    exchanges that single mask strip instead of four.  The derived-field
-    tail keeps its mask machinery — interpolated masks are
-    data-dependent (below-surface points) even on fully defined inputs.
     """
     if dict(mesh.shape).get("lev", 1) != 1:
         raise ValueError("isobaric sharding needs lev == 1 (columns span "
                          "all model levels)")
-    nyg, nxg = (tk.values.shape[-2:] if global_shape is None
-                else global_shape)
-    _require_local_rows(mesh, tk.values.shape[-2])
-    plevels = tuple(float(t) for t in plevels)
-    args = (tk, q, u, v, ps, jnp.asarray(alevel, jnp.float32),
-            jnp.asarray(blevel, jnp.float32),
-            jnp.asarray(xmapr, jnp.float32), jnp.asarray(ymapr, jnp.float32),
-            jnp.asarray(fcoriolis, jnp.float32))
-    leaves = tuple(jax.tree_util.tree_flatten(args)[0])
-    fn = _isobaric_sharded_fn(mesh, (nyg, nxg), plevels, bool(interpret),
-                              bool(overlap), bool(all_defined))
-    return fn(leaves)
+    ny, nx = tk.values.shape[-2:]
+    _require_local_rows(mesh, ny, nx)
+    return _isobaric_sharded_fn(mesh, tuple(float(t) for t in plevels))(
+        tk, q, u, v, ps, alevel, blevel, _maps(xmapr, ny, nx),
+        _maps(ymapr, ny, nx), _maps(fcoriolis, ny, nx))
 
 
 @functools.lru_cache(maxsize=64)
-def _isobaric_sharded_fn(mesh: Mesh, global_shape, plevels, interpret: bool,
-                         overlap: bool = False, all_defined: bool = False):
-    from ..ops.vertical_fused import hlevel_to_plevel_fused
-
-    nyg, nxg = global_shape
-    names = mesh.axis_names
-    np_ = len(plevels)
-    HY, HX = _halo_widths(mesh)
-
-    def body(leaves):
-        tk, q, u, v, ps, al, bl, xm, ym, fc = \
-            jax.tree_util.tree_unflatten(_TREEDEF, leaves)
-
-        # local column interpolation (no communication)
-        tki, qi, ui, vi = hlevel_to_plevel_fused(
-            (tk, q, u, v), ps, al, bl, plevels, interpret=interpret,
-            all_defined=all_defined)
-
-        if overlap:
-            if all_defined:
-                # the interp emitted ONE shared bracket-gate mask, but
-                # the jit boundary returns a distinct tracer per output
-                # position — re-alias so _overlap_core's wire dedup
-                # (id-based) packs the mask strip once, not four times
-                m1 = tki.mask
-                tki, qi, ui, vi = (Field(f.values, m1)
-                                   for f in (tki, qi, ui, vi))
-            ny_loc, nx_loc = tk.values.shape[-2:]
-            gy = mesh.shape["gy"] if "gy" in names else 1
-            gx = mesh.shape["gx"] if "gx" in names else 1
-            # constant-pressure surfaces: alevel = plevels, blevel = 0,
-            # ps = 0 defined everywhere (models/pipeline.py
-            # derived_fields_isobaric)
-            ps1 = Field(jnp.zeros((ny_loc, nx_loc), jnp.float32),
-                        jnp.ones((ny_loc, nx_loc), bool))
-            return _overlap_core(
-                names, gy, gx, nyg, nxg, interpret, tki, qi, ui, vi, ps1,
-                jnp.asarray(plevels, jnp.float32),
-                jnp.zeros(np_, jnp.float32), xm, ym, fc)
-
-        if all_defined:
-            # the 4 interpolated stacks share ONE bracket-gate mask —
-            # exchange it once
-            flat = [tki.values, qi.values, ui.values, vi.values,
-                    tki.mask.astype(jnp.int8), xm, ym, fc]
-            flat = _exchange_all(flat, mesh, HY, HX)
-            mshared = flat[4] != 0
-            tkp, qp, up, vp = (Field(flat[i], mshared) for i in range(4))
-            xmp, ymp, fcp = flat[5:]
-        else:
-            flat = []
-            for f in (tki, qi, ui, vi):
-                flat += [f.values, f.mask.astype(jnp.int8)]
-            flat += [xm, ym, fc]
-            flat = _exchange_all(flat, mesh, HY, HX)
-            tkp, qp, up, vp = (Field(flat[2 * i], flat[2 * i + 1] != 0)
-                               for i in range(4))
-            xmp, ymp, fcp = flat[8:]
-
-        ny_loc, nx_loc = tk.values.shape[-2:]
-        gy = mesh.shape["gy"] if "gy" in names else 1
-        dead = ny_loc * gy - nyg
-        ny_h, nx_h = ny_loc + 2 * HY, nx_loc + 2 * HX
-        # constant-pressure surfaces: alevel = plevels, blevel = 0, ps = 0
-        # defined everywhere (models/pipeline.py derived_fields_isobaric)
-        ps1 = Field(jnp.zeros((ny_h, nx_h), jnp.float32),
-                    jnp.ones((ny_h, nx_h), bool))
-        iy = lax.axis_index("gy") if "gy" in names else 0
-        ix = lax.axis_index("gx") if "gx" in names else 0
-        offs = jnp.stack([iy * ny_loc - HY, ix * nx_loc - HX]
-                         ).astype(jnp.int32)
-
-        out = derived_fields_fused(
-            tkp, qp, up, vp, ps1,
-            jnp.asarray(plevels, jnp.float32), jnp.zeros(np_, jnp.float32),
-            xmp, ymp, fcp, interpret=interpret,
-            global_shape=(nyg, nxg), grid_offsets=offs,
-            halo_rows=HY + dead)
-        return jax.tree_util.tree_map(
-            lambda a: a[..., HY:HY + ny_loc, HX:HX + nx_loc], out)
-
-    in_specs, out_specs = _pipeline_specs(mesh)
-    return jax.jit(shard_map(body, mesh=mesh, in_specs=(in_specs,),
-                             out_specs=out_specs, check_vma=False))
-
-
-@functools.lru_cache(maxsize=64)
-def _sharded_fn_overlap(mesh: Mesh, global_shape, interpret: bool,
-                        stacked: bool = False, all_defined: bool = False):
-    """Overlapped variant: the interior kernel runs on the exact
-    tile-aligned local block with NO data dependence on any collective,
-    and only the seam bands (2 rows and/or 2 columns per shard side) are
-    recomputed from small strip kernels and patched in.
-
-    y-seams: 8-row strips (one sublane tile) of full local width, as in
-    round 1.  x-seams (``gx > 1`` meshes): 2-lane edge columns are
-    exchanged *after* being extended with the y-halo rows received in the
-    y-leg — the received columns therefore carry the diagonal-corner
-    data — and each side's strip kernel runs on ``[2 recv lanes | W
-    local lanes]`` (W = min(126, nx_loc), i.e. one 128-lane tile on
-    production shards), harvesting the 2 seam columns over the FULL
-    local height.  Patch order: rows first, then columns overwrite the
-    corners with the corner-complete x-strip values.  Unlike the
-    non-overlap path, the hot interior kernel never sees the ragged
-    ``nx_loc + 4`` lane extent — it streams the aligned local block.
-    """
-    nyg, nxg = global_shape
-    names = mesh.axis_names
-    gy = mesh.shape["gy"] if "gy" in names else 1
-    gx = mesh.shape["gx"] if "gx" in names else 1
-
-    def body(leaves):
-        args = jax.tree_util.tree_unflatten(_TREEDEF, leaves)
-        return _overlap_core(names, gy, gx, nyg, nxg, interpret, *args,
-                             stacked=stacked, all_defined=all_defined)
-
-    in_specs, out_specs = _pipeline_specs(mesh, stacked, all_defined)
-    return jax.jit(shard_map(body, mesh=mesh, in_specs=(in_specs,),
-                             out_specs=out_specs, check_vma=False))
-
-
-def _overlap_core(names, gy, gx, nyg, nxg, interpret,
-                  tk, q, u, v, ps, al, bl, xm, ym, fc,
-                  stacked=False, all_defined=False):
-    """Seam machinery shared by the overlapped pipeline variants
-    (:func:`_sharded_fn_overlap`, and the isobaric path after its
-    local column interpolation): interior kernel on the unpadded
-    local block with no collective dependence, seam bands recomputed
-    from strip kernels and patched in (rows first, then columns).
-    Must be called inside ``shard_map`` over a mesh with axis names
-    ``names`` and spatial extents ``(gy, gx)``.
-    """
-    # Seam-strip geometry, all derived from the composed stencil radius:
-    # each y-seam kernel runs on a STRIP-row block (one 8-row sublane
-    # tile, the minimum that keeps strip DMAs tile-aligned) made of an
-    # R-row halo from the neighbour plus LOC local rows; the R harvested
-    # rows sit >= R rows from either strip edge, so their composed-radius
-    # neighbourhoods are complete.
-    R = RADIUS
-    STRIP = 8
-    LOC = STRIP - R
-    assert STRIP >= 3 * R, "strip too short to harvest R valid rows"
-    ny_loc, nx_loc = tk.values.shape[-2:]
-    if gy > 1 and ny_loc < STRIP:
-        raise ValueError(f"overlap mode needs >= {STRIP} local rows")
-    if gx > 1 and nx_loc < 3 * R + 2:
-        raise ValueError(f"overlap mode needs >= {3 * R + 2} local "
-                         "columns per gx shard")
-    dead = ny_loc * gy - nyg     # bottom shard's global-padding rows
-    iy = lax.axis_index("gy") if "gy" in names else 0
-    ix = lax.axis_index("gx") if "gx" in names else 0
-    row0 = iy * ny_loc
-    col0 = ix * nx_loc
-
-    from .halo import packed_sendrecv, packed_strip_exchange
-    # all_defined: no mask strips ride the wire — the packed legs then
-    # carry ONE dtype, so each direction is a single ppermute
-    VM = 1 if all_defined else 2
-    flat = []
-    for f in (tk, q, u, v, ps):
-        flat += [f.values] if all_defined else [f.values, f.mask]
-    flat += [xm, ym, fc]
-    MAPS = 5 * VM            # index of xm in `flat`
-
-    # Duplicate array OBJECTS in `flat` ride the wire once: the isobaric
-    # all_defined path hands the SAME bracket-gate mask to all four
-    # interpolated fields, and the packed legs below would otherwise
-    # physically carry four identical strips per direction (the packed
-    # buffer is a concat — XLA cannot dedupe wire bytes).
-    uidx, uniq, _seen = [], [], {}
-    for a in flat:
-        k = _seen.get(id(a))
-        if k is None:
-            k = _seen[id(a)] = len(uniq)
-            uniq.append(a)
-        uidx.append(k)
-    firsts = [uidx.index(k) for k in range(len(uniq))]
-
-    # ---- y-leg: one packed ppermute per (direction, dtype) — 4
-    # collectives for all 13 seam strips instead of 26 (the scheduled
-    # v5e HLO showed only the first in-flight wave hiding behind the
-    # interior kernel, the rest serializing on launch latency)
-    tops = bots = None
-    if gy > 1:
-        tu, bu = packed_strip_exchange(uniq, R, "gy", gy)
-        tops = [tu[k] for k in uidx]
-        bots = [bu[k] for k in uidx]
-
-    # ---- x-leg: exchange the y-EXTENDED 2-lane edge columns (the
-    # neighbour's strip then includes its own y-halo rows = our
-    # diagonal-corner data); sequential with the y-leg by design —
-    # only the seam kernels, never the interior, wait on it
-    HYe = R if gy > 1 else 0
-    nys = ny_loc + 2 * HYe
-
-    def extcols(i, lo, hi):
-        a = flat[i]
-        ctr = a[..., :, lo:hi]
-        if not HYe:
-            return ctr
-        return jnp.concatenate(
-            [tops[i][..., :, lo:hi], ctr, bots[i][..., :, lo:hi]],
-            axis=a.ndim - 2)
-
-    lefts = rights = None
-    if gx > 1:
-        lu, ru = packed_sendrecv(
-            [extcols(i, 0, R) for i in firsts],
-            [extcols(i, nx_loc - R, nx_loc) for i in firsts],
-            "gx", gx)
-        lefts = [lu[k] for k in uidx]
-        rights = [ru[k] for k in uidx]
-
-    # ---- interior: no halo, no dependence on any ppermute above
-    offs0 = jnp.stack([row0, col0]).astype(jnp.int32)
-    interior = derived_fields_fused(
-        tk, q, u, v, ps, al, bl, xm, ym, fc, interpret=interpret,
-        stacked=stacked, all_defined=all_defined,
-        global_shape=(nyg, nxg), grid_offsets=offs0, halo_rows=dead)
-
-    def sl(a, lo, hi):
-        return lax.slice_in_dim(a, lo, hi, axis=a.ndim - 2)
-
-    def slx(a, lo, hi):
-        return lax.slice_in_dim(a, lo, hi, axis=a.ndim - 1)
-
-    out = interior
-
-    if gy > 1:
-        if all_defined:
-            tk_t, q_t, u_t, v_t, ps_t = (tops[i] for i in range(5))
-            tk_b, q_b, u_b, v_b, ps_b = (bots[i] for i in range(5))
-        else:
-            tk_t, q_t, u_t, v_t, ps_t = ((tops[2 * i], tops[2 * i + 1])
-                                         for i in range(5))
-            tk_b, q_b, u_b, v_b, ps_b = ((bots[2 * i], bots[2 * i + 1])
-                                         for i in range(5))
-        xm_t, ym_t, fc_t = tops[MAPS:]
-        xm_b, ym_b, fc_b = bots[MAPS:]
-
-        def strip_field(f, halo, top):
-            if all_defined:
-                return Field(strip2(f.values, halo, top), None)
-            hv, hm = halo
-            axv = f.values.ndim - 2
-            if not top:  # bottom strip: local rows first, halo last
-                return Field(
-                    jnp.concatenate(
-                        [sl(f.values, ny_loc - LOC, ny_loc), hv],
-                        axis=axv),
-                    jnp.concatenate(
-                        [sl(f.mask, ny_loc - LOC, ny_loc), hm],
-                        axis=axv))
-            return Field(
-                jnp.concatenate([hv, sl(f.values, 0, LOC)], axis=axv),
-                jnp.concatenate([hm, sl(f.mask, 0, LOC)], axis=axv))
-
-        def strip2(a, halo, top):
-            if top:
-                return jnp.concatenate([halo, a[..., 0:LOC, :]], axis=-2)
-            return jnp.concatenate(
-                [a[..., ny_loc - LOC:ny_loc, :], halo], axis=-2)
-
-        # top seam: rows [row0-2, row0+6); harvest local rows 0..1
-        top_out = derived_fields_fused(
-            strip_field(tk, tk_t, True), strip_field(q, q_t, True),
-            strip_field(u, u_t, True), strip_field(v, v_t, True),
-            strip_field(ps, ps_t, True), al, bl,
-            strip2(xm, xm_t, True), strip2(ym, ym_t, True),
-            strip2(fc, fc_t, True), interpret=interpret, stacked=stacked,
-            all_defined=all_defined,
-            global_shape=(nyg, nxg),
-            grid_offsets=jnp.stack([row0 - R, col0]).astype(jnp.int32),
-            halo_rows=0)
-        # bottom seam: rows [row0+ny_loc-6, row0+ny_loc+2); harvest
-        # the two rows before the halo
-        bot_out = derived_fields_fused(
-            strip_field(tk, tk_b, False), strip_field(q, q_b, False),
-            strip_field(u, u_b, False), strip_field(v, v_b, False),
-            strip_field(ps, ps_b, False), al, bl,
-            strip2(xm, xm_b, False), strip2(ym, ym_b, False),
-            strip2(fc, fc_b, False), interpret=interpret, stacked=stacked,
-            all_defined=all_defined,
-            global_shape=(nyg, nxg),
-            grid_offsets=jnp.stack([row0 + ny_loc - LOC, col0]
-                                   ).astype(jnp.int32),
-            halo_rows=0)
-
-        has_above = iy > 0
-        has_below = iy < gy - 1
-
-        def patch_rows(inter, topv, botv):
-            t = jnp.where(has_above, sl(topv, R, 2 * R),
-                          sl(inter, 0, R))
-            b = jnp.where(has_below, sl(botv, STRIP - 2 * R, STRIP - R),
-                          sl(inter, ny_loc - R, ny_loc))
-            return jnp.concatenate([t, sl(inter, R, ny_loc - R), b],
-                                   axis=inter.ndim - 2)
-
-        out = jax.tree_util.tree_map(patch_rows, out, top_out, bot_out)
-
-    if gx > 1:
-        # one 128-lane tile per strip on production shards; smaller
-        # (ragged, correctness-only) on toy grids
-        W = min(nx_loc, 128 - R)
-
-        def xstrip_arr(i, left):
-            lo, hi = (0, W) if left else (nx_loc - W, nx_loc)
-            ctx = extcols(i, lo, hi)
-            if left:
-                return jnp.concatenate([lefts[i], ctx],
-                                       axis=ctx.ndim - 1)
-            return jnp.concatenate([ctx, rights[i]], axis=ctx.ndim - 1)
-
-        def xargs(left):
-            if all_defined:
-                fld = lambda k: Field(xstrip_arr(k, left), None)
-            else:
-                fld = lambda k: Field(xstrip_arr(2 * k, left),
-                                      xstrip_arr(2 * k + 1, left))
-            return (fld(0), fld(1), fld(2), fld(3), fld(4), al, bl,
-                    xstrip_arr(MAPS, left), xstrip_arr(MAPS + 1, left),
-                    xstrip_arr(MAPS + 2, left))
-
-        # strips span ALL local rows (plus the y-halo), so their
-        # harvested columns are valid at the y-seam corners too
-        left_out = derived_fields_fused(
-            *xargs(True), interpret=interpret, stacked=stacked,
-            all_defined=all_defined,
-            global_shape=(nyg, nxg),
-            grid_offsets=jnp.stack([row0 - HYe, col0 - R]
-                                   ).astype(jnp.int32),
-            halo_rows=dead + HYe)
-        right_out = derived_fields_fused(
-            *xargs(False), interpret=interpret, stacked=stacked,
-            all_defined=all_defined,
-            global_shape=(nyg, nxg),
-            grid_offsets=jnp.stack([row0 - HYe, col0 + nx_loc - W]
-                                   ).astype(jnp.int32),
-            halo_rows=dead + HYe)
-
-        has_left = ix > 0
-        has_right = ix < gx - 1
-
-        def localrows(a):
-            return sl(a, HYe, HYe + ny_loc)
-
-        def patch_cols(a, lv, rv):
-            left = jnp.where(has_left, slx(localrows(lv), R, 2 * R),
-                             slx(a, 0, R))
-            right = jnp.where(has_right,
-                              slx(localrows(rv), W - R, W),
-                              slx(a, nx_loc - R, nx_loc))
-            return jnp.concatenate(
-                [left, slx(a, R, nx_loc - R), right], axis=a.ndim - 1)
-
-        out = jax.tree_util.tree_map(patch_cols, out, left_out,
-                                     right_out)
-
-    return out
+def _isobaric_sharded_fn(mesh: Mesh, plevels):
+    from ..models.pipeline import derived_fields_isobaric
+    from .halo import run_sharded
+    op = functools.partial(derived_fields_isobaric, plevels=plevels)
+    return jax.jit(lambda *a: run_sharded(op, mesh, RADIUS, *a))
 
 
 def ensemble_summary_sharded(mesh: Mesh, tk: Field, q: Field, u: Field,
                              v: Field, ps: Field, alevel, blevel,
                              xmapr, ymapr, fcoriolis,
-                             wind_limit: float = 15.0,
-                             interpret: bool = False,
-                             global_shape=None,
-                             all_defined: bool = False):
+                             wind_limit: float = 15.0):
     """Sharded ensemble pipeline: per-member derived fields + ensemble
     summary, spatially decomposed over ``mesh``.
 
     Inputs as :func:`..models.ensemble.ensemble_derived_summary`
     (``[nmem, nlev, ny, nx]`` member stacks, ``[nmem, ny, nx]`` surface
-    pressure; map factors as ``(ny, nx)`` arrays).  The member axis
-    stays LOCAL (members are embarrassingly parallel and the summary
-    reduces over them), each member runs through the seam-strip overlap
-    machinery (:func:`_overlap_core`) vmapped over the local block, and
-    the probability denominators use *globally* reduced per-member
-    whole-field flags (``lax.pmax`` over the spatial axes) — the
-    reference's flag is a whole-field decision
-    (FieldCalculations.cc:2840-2847), so a per-shard ``any`` would
+    pressure).  The member pipelines run per shard through
+    :func:`..parallel.halo.run_sharded`; the summary reduces the sharded
+    member stacks in the same jitted program, so XLA reduces the
+    probability denominators' whole-field member flags across shards —
+    the reference's flag is a whole-field decision
+    (FieldCalculations.cc:2840-2847), and a per-shard ``any`` would
     diverge between shards whose subdomain sees no defined point of a
-    member.  The mesh must have ``lev == 1``.
+    member.  The mesh must have ``lev == 1`` (the member axis stays
+    local).
     """
     if dict(mesh.shape).get("lev", 1) != 1:
         raise ValueError("ensemble sharding needs lev == 1 (the member "
                          "axis stays local; spatial axes shard)")
-    nyg, nxg = (tk.values.shape[-2:] if global_shape is None
-                else global_shape)
-    _require_local_rows(mesh, tk.values.shape[-2])
-    args = (tk, q, u, v, ps, jnp.asarray(alevel, jnp.float32),
-            jnp.asarray(blevel, jnp.float32),
-            jnp.asarray(xmapr, jnp.float32), jnp.asarray(ymapr, jnp.float32),
-            jnp.asarray(fcoriolis, jnp.float32))
-    leaves = tuple(jax.tree_util.tree_flatten(args)[0])
-    fn = _ensemble_sharded_fn(mesh, (nyg, nxg), float(wind_limit),
-                              bool(interpret), bool(all_defined))
-    return fn(leaves)
+    ny, nx = tk.values.shape[-2:]
+    _require_local_rows(mesh, ny, nx)
+    return _ensemble_sharded_fn(mesh, float(wind_limit))(
+        tk, q, u, v, ps, jnp.asarray(alevel, jnp.float32),
+        jnp.asarray(blevel, jnp.float32), _maps(xmapr, ny, nx),
+        _maps(ymapr, ny, nx), _maps(fcoriolis, ny, nx))
 
 
 @functools.lru_cache(maxsize=64)
-def _ensemble_sharded_fn(mesh: Mesh, global_shape, wind_limit: float,
-                         interpret: bool, all_defined: bool = False):
-    from ..models.ensemble import EnsembleSummary
-    from ..models.pipeline import DerivedFields
-    from ..ops import mean_value, probability, stddev_value
+def _ensemble_sharded_fn(mesh: Mesh, wind_limit: float):
+    from ..models.ensemble import summarize
+    from ..models.pipeline import derived_fields
+    from .halo import run_sharded
 
-    nyg, nxg = global_shape
-    names = mesh.axis_names
-    gy = mesh.shape["gy"] if "gy" in names else 1
-    gx = mesh.shape["gx"] if "gx" in names else 1
-    spatial = tuple(n for n in ("gy", "gx") if n in names)
+    def members(tk, q, u, v, ps, al, bl, xm, ym, fc):
+        return jax.vmap(lambda *f: derived_fields(*f, al, bl, xm, ym, fc))(
+            tk, q, u, v, ps)
 
-    def body(leaves):
-        tk, q, u, v, ps, al, bl, xm, ym, fc = \
-            jax.tree_util.tree_unflatten(_TREEDEF, leaves)
+    def step(*args):
+        return summarize(run_sharded(members, mesh, RADIUS, *args),
+                         wind_limit)
 
-        per_member = jax.vmap(
-            lambda tkm, qm, um, vm, psm: _overlap_core(
-                names, gy, gx, nyg, nxg, interpret,
-                tkm, qm, um, vm, psm, al, bl, xm, ym, fc, stacked=True,
-                all_defined=all_defined))
-        st = per_member(tk, q, u, v, ps)    # SoA: values [nmem, 12, ...]
-        from ..models.pipeline import DerivedFieldsStacked
-        out = DerivedFields(*[
-            Field(st.values[:, i],
-                  DerivedFieldsStacked.mask_plane(st.masks, i,
-                                                  st.values[:, i], axis=1,
-                                                  region=st.region))
-            for i in range(12)])
-
-        def member_flags(f):
-            # whole-field per-member flag, reduced across shards so the
-            # probability denominator is the reference's global decision
-            local = jnp.any(f.mask, axis=tuple(range(1, f.mask.ndim)))
-            if not spatial:
-                return local
-            return lax.pmax(local.astype(jnp.int32), spatial) != 0
-
-        mean = DerivedFields(*[mean_value(f) for f in out])
-        spread = DerivedFields(*[stddev_value(f) for f in out])
-        prob_wind = probability(1, out.wspeed, (wind_limit,),
-                                member_defined_mask=member_flags(out.wspeed))
-        prob_t_freeze = probability(2, out.tadv, (0.0,),
-                                    member_defined_mask=member_flags(out.tadv))
-        return EnsembleSummary(mean=mean, spread=spread,
-                               prob_wind=prob_wind,
-                               prob_t_freeze=prob_t_freeze)
-
-    spec3 = partition_spec(3, mesh)
-    fld3 = Field(spec3, spec3)
-    df3 = DerivedFields(*[fld3] * 12)
-    out_specs = EnsembleSummary(mean=df3, spread=df3, prob_wind=fld3,
-                                prob_t_freeze=fld3)
-    in_specs = tuple(partition_spec(nd, mesh)
-                     for nd in [4] * 8 + [3] * 2 + [1] * 2 + [2] * 3)
-    return jax.jit(shard_map(body, mesh=mesh, in_specs=(in_specs,),
-                             out_specs=out_specs, check_vma=False))
+    return jax.jit(step)

@@ -4,7 +4,7 @@ The reference's stencils read a fixed radius-R neighbourhood in a flat
 x-fastest array (e.g. FieldCalculations.cc:1862, 2016) and patch physical
 boundaries with ``fillEdges`` (cc:59-74).  On a 2-D device mesh the same
 operators run per-shard on blocks padded with a radius-R halo ring fetched
-from mesh neighbours over ICI (``lax.ppermute`` inside ``shard_map``),
+from mesh neighbours (``lax.ppermute`` inside ``shard_map``),
 while ``fillEdges`` must apply only at *physical* domain edges.
 
 Mechanics:
@@ -51,21 +51,6 @@ __all__ = ["halo_exchange", "packed_strip_exchange", "packed_sendrecv",
            "EdgeContext"]
 
 
-def _lab_self_permute() -> bool:
-    """Scaling-lab knob (tools/scaling_bench.py --artifact): with
-    ``MF_LAB_SELF_PERMUTE=1`` every halo ppermute targets SELF
-    (identity permutation) — same slice/collective/concat structure and
-    byte counts, zero cross-device movement; the control that separates
-    the halo-CONCAT restructure cost from halo TRANSPORT on a backend
-    where both are host memcpy.  Read at TRACE time (same convention as
-    ops/fused.py's _V knobs — an env var, not a mutable global, so a
-    stray flag cannot linger in this process after the lab resets it;
-    the lab builds a fresh jit per variant).  Seam values are wrong
-    with it on; never set outside the lab."""
-    import os
-    return os.environ.get("MF_LAB_SELF_PERMUTE", "") == "1"
-
-
 def _exchange_1d(a, h: int, axis: int, name: str, size: int):
     """Pad ``a`` with an ``h``-wide halo along ``axis`` from mesh
     neighbours on mesh axis ``name`` (``size`` devices).  Physical-edge
@@ -83,11 +68,8 @@ def _exchange_1d(a, h: int, axis: int, name: str, size: int):
                             size).astype(jnp.bool_)
     lo_strip = lax.slice_in_dim(a, 0, h, axis=axis)          # my first h rows
     hi_strip = lax.slice_in_dim(a, dim - h, dim, axis=axis)  # my last h rows
-    if _lab_self_permute():
-        fwd = bwd = [(i, i) for i in range(size)]
-    else:
-        fwd = [(i, i + 1) for i in range(size - 1)]  # i's hi -> (i+1)'s lo halo
-        bwd = [(i + 1, i) for i in range(size - 1)]  # i's lo -> (i-1)'s hi halo
+    fwd = [(i, i + 1) for i in range(size - 1)]  # i's hi -> (i+1)'s lo halo
+    bwd = [(i + 1, i) for i in range(size - 1)]  # i's lo -> (i-1)'s hi halo
     halo_lo = lax.ppermute(hi_strip, name, fwd)
     halo_hi = lax.ppermute(lo_strip, name, bwd)
     return jnp.concatenate([halo_lo, a, halo_hi], axis=axis)
@@ -125,11 +107,9 @@ def packed_strip_exchange(arrays: Sequence, h: int, name: str, size: int,
     per (direction, dtype class) instead of one per array.
 
     A multi-field pipeline step otherwise issues 2 x n_arrays small
-    collectives; the scheduled v5e HLO (tools/overlap_audit.py) shows
-    only the first in-flight wave hides behind interior compute and the
-    rest serialize on launch latency.  Packing the strips into a single
-    f32 buffer (+ one int8 buffer for bool masks) per direction turns
-    that into 4 larger ICI messages whose latency amortises.
+    collectives, each paying launch latency.  Packing the strips into a
+    single f32 buffer (+ one int8 buffer for bool masks) per direction
+    turns that into 4 larger messages whose latency amortises.
 
     Returns ``(tops, bots)``: per-array strips arriving from the mesh
     neighbour before / after on ``name`` (zeros at physical edges),
@@ -242,10 +222,9 @@ def packed_exchange_cols(arrays: Sequence, h: int, mesh: Mesh):
     array padded with ``h`` lanes per side; zeros at physical edges.
 
     The per-array alternative costs 2 x n_arrays tiny ``(.., ny, 2)``
-    ppermutes on a (gy, gx) mesh — 20 extra sync collectives per
-    pipeline step at the config-5 shapes, each paying full launch
-    latency for a few-KB payload (tools/northstar_aot.py --gx).  Packed,
-    the whole x-leg is 4 messages, matching the y-leg."""
+    ppermutes on a (gy, gx) mesh, each paying full launch latency for a
+    few-KB payload.  Packed, the whole x-leg is 4 messages, matching the
+    y-leg."""
     size = mesh.shape["gx"] if "gx" in mesh.axis_names else 1
     if size == 1:
         pad = lambda a: jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(h, h)])

@@ -8,9 +8,9 @@ Axis convention:
   grid axes.  Stencil operators need halo exchange along these
   (:mod:`mi_fieldcalc_tpu.parallel.halo`).
 
-On a real TPU slice the mesh should be laid out so ``gy``/``gx`` neighbours
-are ICI neighbours; :func:`grid_mesh` delegates to
-``jax.experimental.mesh_utils.create_device_mesh`` which does exactly that.
+The mesh is built in plain device order: the GPUs of a host are joined
+all to all (NVLink), so every card reaches every other at the same rate
+and the layout follows the decomposition alone.
 """
 
 from __future__ import annotations
@@ -107,18 +107,9 @@ def grid_mesh(mesh_shape: Optional[Sequence[int]] = None,
         # would silently read (2, 4) as lev=2 batch + gy=4 and leave nx
         # undecomposed with half the machine doing duplicate work
         names = names[len(names) - len(mesh_shape):]
-    try:
-        from jax.experimental import mesh_utils
-        dev_array = mesh_utils.create_device_mesh(mesh_shape, devices=devices)
-    except Exception:
-        # arbitrary enumeration order: correct but gy/gx neighbours may
-        # not be ICI neighbours — say so instead of silently degrading
-        import warnings
-        warnings.warn(
-            "mesh_utils.create_device_mesh failed; falling back to "
-            "device enumeration order (halo ppermute neighbours may not "
-            "be ICI-adjacent)", RuntimeWarning, stacklevel=2)
-        dev_array = np.asarray(devices).reshape(mesh_shape)
+    # plain device order: the cards of a host are joined all to all, so
+    # the mesh follows the decomposition alone
+    dev_array = np.asarray(devices).reshape(mesh_shape)
     return Mesh(dev_array, names)
 
 

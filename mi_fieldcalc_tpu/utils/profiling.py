@@ -18,17 +18,18 @@ import dataclasses
 
 __all__ = ["trace", "Roofline", "roofline_for_op", "device_hbm_gbps"]
 
-#: Public per-chip HBM bandwidth figures (bytes/s) by device-kind substring.
+#: Published peak device-memory bandwidth (bytes/s), matched on
+#: ``device_kind`` (NVIDIA H100 data sheet: SXM 3.35 TB/s, PCIe 2.0 TB/s).
 _HBM_TABLE = (
-    ("v5 lite", 819e9), ("v5e", 819e9),
-    ("v5p", 2765e9),
-    ("v4", 1228e9),
-    ("v6 lite", 1638e9), ("v6e", 1638e9),
+    ("h100 pcie", 2.0e12),
+    ("h100", 3.35e12),
 )
 
 
 def device_hbm_gbps(device=None) -> float:
-    """Peak HBM bandwidth (bytes/s) of ``device`` (default: first device)."""
+    """Published peak memory bandwidth (bytes/s) of ``device`` (default:
+    first device).  A device missing from the table is an error: a
+    roofline against a guessed peak is not a measurement."""
     import jax
     if device is None:
         device = jax.devices()[0]
@@ -36,7 +37,8 @@ def device_hbm_gbps(device=None) -> float:
     for key, bw in _HBM_TABLE:
         if key in kind:
             return bw
-    return 819e9
+    raise ValueError(f"no published memory bandwidth for device kind "
+                     f"{kind!r}")
 
 
 @contextlib.contextmanager

@@ -1,6 +1,6 @@
 // Host-side boundary codec for mi_fieldcalc_tpu.
 //
-// The TPU framework's compute path is JAX/Pallas; the native layer that
+// The framework's compute path is JAX on the accelerator; the native layer that
 // remains host-work is the numpy boundary: decoding sentinel-encoded grids
 // (miutil::UNDEF = 1e35, reference FieldDefined.cc:34) into (values, mask)
 // pairs, re-encoding results, and computing the tri-state definedness
@@ -384,9 +384,7 @@ void mf_encode_trim_batch_map(const float* v, const uint8_t* mask,
 // `pmask` is one [K, ny_p, nx_p] uint32 block with bit L = level L
 // defined (dead rows/lanes all-zero), matching the kernel's in-program
 // pack ((m << lev).sum(0), ops/fused.py).  The mask payload shipped
-// per step is nlev/32 of the uint8 block — the 8-32x cut PERF.md item
-// 4 measured as a step-time wash but a real transfer-bytes win on a
-// latency-bound host link.  Values block and counts as
+// per step is nlev/32 of the uint8 block.  Values block and counts as
 // mf_decode_pad_batch.  Requires nlev <= 32.
 void mf_decode_pad_levpack_batch(const float** srcs, int64_t k,
                                  int64_t nlev, int64_t ny, int64_t nx,

@@ -5,7 +5,7 @@ that make the formula's domain valid), scalar parameters, and an undef
 pattern.  ``tools/oracle/gen_goldens.py`` replays these through the
 compiled reference library (the oracle) and stores outputs in
 ``tests/goldens/goldens.npz``; ``tests/test_conformance.py`` replays them
-through the TPU-native ops and compares.
+through this framework's ops and compares.
 
 Input generation is deterministic: ``case_inputs(case)`` seeds a
 PCG64 stream with the case name so generator and test agree bit-for-bit.
@@ -352,7 +352,8 @@ def build_large_cases() -> List[Case]:
     Exner pow conversion, one ensemble, one icing solver (VERDICT r4 item 5; the reference's own canary grid,
     test/FieldCalculationsTest.cc:145-170).  Kept out of the main CASES
     list: they live in goldens_large.npz (~11 MB) and run via
-    tests/test_conformance_large.py + tools/tpu_golden.py --large."""
+    tests/test_conformance_large.py (chip_smoke.py replays them on the
+    GPU)."""
     L = (LARGE_NY, LARGE_NX)
     cases: List[Case] = []
     add = cases.append

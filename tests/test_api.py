@@ -204,7 +204,7 @@ def test_mean_value_all_defined_flag_trusts_member():
 
 def test_drop_in_module_shim():
     """`import mi_fieldcalc` (the reference's pybind11 module name)
-    resolves to the TPU build with the bound surface intact."""
+    resolves to this build with the bound surface intact."""
     import mi_fieldcalc as mf
 
     assert hasattr(mf, "ValuesDefined")

@@ -1,6 +1,6 @@
 """Reference-conformance suite: every golden in tests/goldens/goldens.npz
 (generated from the compiled reference library via tools/oracle/) is
-replayed through the TPU-native ops and compared.
+replayed through this framework's ops and compared.
 
 Comparison contract (SURVEY §7 hard part 1):
 * values must agree (allclose at per-case tolerance; exact for pure

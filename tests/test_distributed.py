@@ -4,7 +4,7 @@ virtual CPU devices each join one 8-device JAX runtime, feed per-process
 shards through ``local_shard_array``, and run the sharded derived-field
 pipeline whose halo ``ppermute`` legs cross the process boundary (gloo).
 
-The real thing (multiple TPU hosts over ICI/DCN) differs only in
+The real thing (several hosts of GPUs over NCCL) differs only in
 transport — the mesh construction, in/out specs, and collective layout
 are identical code paths (SURVEY §2.7 multi-process row)."""
 

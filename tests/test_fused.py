@@ -1,10 +1,10 @@
-"""Equivalence of the fused Pallas pipeline kernel with the jnp pipeline.
+"""Equivalence of the GPU pipeline kernel with the jnp pipeline.
 
-The fused kernel (mi_fieldcalc_tpu/ops/fused.py) must produce the same 12
+The kernel (mi_fieldcalc_tpu/ops/fused.py) must produce the same 12
 outputs as :func:`mi_fieldcalc_tpu.models.derived_fields`: masks
-bit-for-bit, values to f32 round-off (Mosaic reassociates differently than
-XLA).  Runs in Pallas interpret mode on the CPU test backend; the same
-kernel compiles natively on TPU (checked by bench.py / the driver).
+bit-for-bit, values to f32 round-off.  These tests run the Triton-route
+kernel in the Pallas interpreter on the CPU; tests/test_gpu.py runs it
+compiled on the card.
 """
 
 import jax
@@ -15,6 +15,9 @@ import pytest
 from mi_fieldcalc_tpu.field import UNDEF, from_sentinel
 from mi_fieldcalc_tpu.models.pipeline import derived_fields
 from mi_fieldcalc_tpu.ops.fused import derived_fields_fused, fused_supported
+
+#: small tiles keep the interpreter's grid loop short on test grids
+BLK = dict(block=(8, 32))
 
 
 def _inputs(nlev, ny, nx, seed=0, undefs=True):
@@ -44,41 +47,20 @@ def _inputs(nlev, ny, nx, seed=0, undefs=True):
             jnp.asarray(fc))
 
 
-@pytest.mark.parametrize("nlev,ny,nx", [
-    (3, 37, 61),     # ragged everything, nx < one 128-lane chunk
-    (2, 33, 135),    # nx just past one chunk (ragged gather tail)
-    (1, 9, 9),       # minimal-ish grid (single padded tile)
-    (1, 17, 140),    # (ny-1) divisible by every tile height <= ny
-    (2, 64, 256),    # TY divides ny shapes
-])
-@pytest.mark.parametrize("undefs", [True, False])
-def test_fused_matches_jnp(nlev, ny, nx, undefs):
-    assert fused_supported(ny, nx)
-    args = _inputs(nlev, ny, nx, seed=ny + nx, undefs=undefs)
-    ref = jax.jit(derived_fields)(*args)
-    got = derived_fields_fused(*args, interpret=True)
+def _assert_matches(got, ref, rtol=2e-5):
+    """Masks bit for bit; values to ``rtol`` on defined points."""
     for name in ref._fields:
         rv = np.asarray(getattr(ref, name).values)
         rm = np.asarray(getattr(ref, name).mask)
         gv = np.asarray(getattr(got, name).values)
         gm = np.asarray(getattr(got, name).mask)
         assert np.array_equal(rm, gm), f"{name}: mask mismatch"
-        w = rm
         with np.errstate(all="ignore"):
-            assert np.allclose(rv[w], gv[w], rtol=2e-5, atol=1e-30), \
-                f"{name}: value mismatch"
+            assert np.allclose(rv[rm], gv[rm], rtol=rtol, atol=1e-30,
+                               equal_nan=True), f"{name}: value mismatch"
 
 
-@pytest.mark.parametrize("nlev,ny,nx", [
-    (3, 37, 61),
-    (2, 64, 256),
-])
-def test_fused_split_matches_monolith(nlev, ny, nx):
-    """split=True (elementwise + stencil kernels) is bitwise-identical to
-    the monolith: same formulas, same per-part unpacking in _kernel."""
-    args = _inputs(nlev, ny, nx, seed=nx, undefs=True)
-    ref = derived_fields_fused(*args, interpret=True)
-    got = derived_fields_fused(*args, interpret=True, split=True)
+def _assert_bitwise(got, ref):
     for name in ref._fields:
         ra, ga = getattr(ref, name), getattr(got, name)
         rm = np.asarray(ra.mask)
@@ -87,25 +69,55 @@ def test_fused_split_matches_monolith(nlev, ny, nx):
                               np.asarray(ga.values)[rm]), name
 
 
+def _pad(args):
+    from mi_fieldcalc_tpu.layout import pad_array, pad_field
+    return tuple(pad_field(a) if hasattr(a, "mask") else
+                 (pad_array(a) if a.ndim == 2 else a) for a in args)
+
+
+@pytest.mark.parametrize("nlev,ny,nx", [
+    (3, 37, 61),     # ragged everything
+    (2, 33, 135),    # ragged, several x tiles
+    (1, 9, 9),       # minimal-ish grid (single tile)
+    (1, 17, 140),    # last row alone in its tile
+    (2, 64, 256),    # tiles divide the grid
+])
+@pytest.mark.parametrize("undefs", [True, False])
+def test_fused_matches_jnp(nlev, ny, nx, undefs):
+    assert fused_supported(ny, nx)
+    args = _inputs(nlev, ny, nx, seed=ny + nx, undefs=undefs)
+    ref = jax.jit(derived_fields)(*args)
+    got = derived_fields_fused(*args, interpret=True, **BLK)
+    _assert_matches(got, ref)
+
+
+@pytest.mark.parametrize("block,num_warps", [
+    ((2, 256), 4), ((4, 128), 4), ((16, 16), 2), ((1, 64), 1)])
+def test_fused_block_shapes_bitwise(block, num_warps):
+    """The tile shape changes the launch grid, never a result: every
+    point is computed by the same traced formulas."""
+    args = _inputs(2, 21, 45, seed=4, undefs=True)
+    ref = derived_fields_fused(*args, interpret=True, **BLK)
+    got = derived_fields_fused(*args, interpret=True, block=block,
+                               num_warps=num_warps)
+    _assert_bitwise(got, ref)
+
+
 @pytest.mark.parametrize("nlev,ny,nx", [
     (3, 37, 61),      # pads to (40, 128)
     (2, 33, 135),     # pads to (40, 256)
     (2, 48, 256),     # already aligned (pad is a no-op)
 ])
 def test_fused_padded_layout_matches(nlev, ny, nx):
-    """Canonical padded layout (layout.py): tile-aligned inputs +
-    logical global_shape give bitwise-identical logical outputs, with
-    edge fills at the logical boundary, not the padded one."""
-    from mi_fieldcalc_tpu.layout import pad_array, pad_field, trim_field
+    """Arrays with dead trailing rows/lanes plus the logical
+    ``global_shape`` give bitwise-identical logical outputs, with edge
+    fills at the logical boundary, not the array's."""
+    from mi_fieldcalc_tpu.layout import trim_field
 
     args = _inputs(nlev, ny, nx, seed=3 * ny + nx, undefs=True)
-    ref = derived_fields_fused(*args, interpret=True)
-    pargs = tuple(
-        pad_field(a) if hasattr(a, "mask") else
-        (pad_array(a) if a.ndim == 2 else a)
-        for a in args)
-    got = derived_fields_fused(*pargs, interpret=True,
-                               global_shape=(ny, nx))
+    ref = derived_fields_fused(*args, interpret=True, **BLK)
+    got = derived_fields_fused(*_pad(args), interpret=True,
+                               global_shape=(ny, nx), **BLK)
     for name in ref._fields:
         ra = getattr(ref, name)
         ga = trim_field(getattr(got, name), ny, nx)
@@ -119,89 +131,29 @@ def test_fused_supported_bounds():
     assert not fused_supported(2, 64)      # ny < 3
     assert not fused_supported(64, 2)      # nx < 3
     assert fused_supported(719, 929)
+    args = _inputs(1, 2, 9, seed=1)
+    with pytest.raises(ValueError):
+        derived_fields_fused(*args, interpret=True, **BLK)
 
 
 def test_fused_stacked_matches_per_field():
-    """stacked=True writes the same values/masks into the (12, ...) SoA
-    layout, and the lazy accessors recover each Field bitwise."""
+    """stacked=True writes the (12, ...) value stack and the 9
+    deduplicated mask planes; the lazy accessors recover each Field."""
     args = _inputs(2, 37, 61, seed=5, undefs=True)
-    ref = derived_fields_fused(*args, interpret=True)
-    for packed, dedup in ((True, False), (False, True), (False, False)):
-        got = derived_fields_fused(*args, interpret=True, stacked=True,
-                                   packed_masks=packed, dedup_masks=dedup)
-        assert got.values.shape == (12, 2, 37, 61)
-        if packed:
-            # ONE int32 bit-plane (bit k = field k defined)
-            assert got.masks.dtype == np.int32
-            assert got.masks.shape == (2, 37, 61)
-        else:
-            # default: 9 deduplicated planes (td/duc/dv share rh/the/vo)
-            assert got.masks.dtype == np.int8   # boundary dtype
-            assert got.masks.shape == (9 if dedup else 12, 2, 37, 61)
-        assert got.field(0).mask.dtype == np.bool_
-        fields = got.as_fields()
-        for i, name in enumerate(ref._fields):
-            fa, fb, fc = ref[i], got.field(i), getattr(got, name)
-            ma = np.asarray(fa.mask)
-            assert np.array_equal(ma, np.asarray(fb.mask)), name
-            assert np.array_equal(np.asarray(fa.values)[ma],
-                                  np.asarray(fb.values)[ma]), name
-            assert np.array_equal(np.asarray(fc.values)[ma],
-                                  np.asarray(fields[i].values)[ma]), name
-
-
-def test_fused_levpack_masks_match():
-    """levpack_masks=True: input masks enter as lev-bit-packed 2-D int32
-    planes, output masks come back as a (9, ny, nx) uint32 bit-plane
-    stack (bit L = level L) — values and unpacked masks bitwise-equal to
-    the per-field path, on plain AND padded layouts, with and without
-    pre-packed input masks."""
-    import jax.numpy as jnp
-    from mi_fieldcalc_tpu.layout import pad_array, pad_field
-
-    nlev, ny, nx = 3, 37, 61
-    args = _inputs(nlev, ny, nx, seed=11, undefs=True)
-    ref = derived_fields_fused(*args, interpret=True)
-    got = derived_fields_fused(*args, interpret=True, stacked=True,
-                               levpack_masks=True)
-    assert got.masks.dtype == np.uint32
-    assert got.masks.shape == (9, ny, nx)
+    ref = jax.jit(derived_fields)(*args)
+    got = derived_fields_fused(*args, interpret=True, stacked=True, **BLK)
+    assert got.values.shape == (12, 2, 37, 61)
+    assert got.masks.dtype == np.int8
+    assert got.masks.shape == (9, 2, 37, 61)
+    assert got.field(0).mask.dtype == np.bool_
+    fields = got.as_fields()
     for i, name in enumerate(ref._fields):
-        ra, ga = ref[i], got.field(i)
-        rm = np.asarray(ra.mask)
-        assert np.array_equal(rm, np.asarray(ga.mask)), name
-        assert np.array_equal(np.asarray(ra.values)[rm],
-                              np.asarray(ga.values)[rm]), name
-
-    # padded layout + pre-packed input masks (the hot-path form)
-    pargs = tuple(
-        pad_field(a) if hasattr(a, "mask") else
-        (pad_array(a) if a.ndim == 2 else a)
-        for a in args)
-    sh = jnp.arange(nlev, dtype=jnp.int32)[:, None, None]
-    pm = tuple((pargs[i].mask.astype(jnp.int32) << sh).sum(0)
-               for i in (0, 1, 2, 3))
-    got2 = derived_fields_fused(*pargs, interpret=True, stacked=True,
-                                levpack_masks=True, global_shape=(ny, nx),
-                                packed_input_masks=pm)
-    for i, name in enumerate(ref._fields):
-        ra = ref[i]
-        ga = got2.field(i)
-        gm = np.asarray(ga.mask)
-        rm = np.asarray(ra.mask)
-        assert np.array_equal(rm, gm[:, :ny, :nx]), name
-        assert not gm[:, ny:, :].any() and not gm[:, :, nx:].any(), name
-        assert np.array_equal(np.asarray(ra.values)[rm],
-                              np.asarray(ga.values)[:, :ny, :nx][rm]), name
-
-
-def test_fused_levpack_rejects_bad_combos():
-    args = _inputs(2, 16, 24, seed=1, undefs=True)
-    with pytest.raises(ValueError):
-        derived_fields_fused(*args, interpret=True, levpack_masks=True)
-    with pytest.raises(ValueError):
-        derived_fields_fused(*args, interpret=True, stacked=True,
-                             levpack_masks=True, packed_masks=True)
+        fa, fb, fc = ref[i], got.field(i), getattr(got, name)
+        ma = np.asarray(fa.mask)
+        assert np.array_equal(ma, np.asarray(fb.mask)), name
+        assert np.array_equal(np.asarray(fc.values)[ma],
+                              np.asarray(fields[i].values)[ma]), name
+    _assert_matches(fields, ref)
 
 
 @pytest.mark.parametrize("nlev,ny,nx", [
@@ -210,8 +162,8 @@ def test_fused_levpack_rejects_bad_combos():
 ])
 def test_fused_all_defined_fast_path(nlev, ny, nx):
     """all_defined=True (the reference's inAllDefined shortcut,
-    FieldCalculations.cc:100) skips every mask plane except the 2
-    data-dependent gates and is bitwise-identical to the default path on
+    FieldCalculations.cc:100) reads no mask and writes only the 2
+    data-dependent gates; it is bitwise-identical to the default path on
     fully defined inputs — including an out-of-table temperature (the
     humidity gate) and a |grad T| == 0 plateau (the TFP gate), which stay
     data-dependent even with all inputs defined."""
@@ -222,47 +174,30 @@ def test_fused_all_defined_fast_path(nlev, ny, nx):
     v[-1, 5:10, 5:10] = 300.0     # constant-T plateau: |grad T| = 0
     args = (type(tk)(jnp.asarray(v), tk.mask),) + args[1:]
 
-    ref = derived_fields_fused(*args, interpret=True)
-    for kw in ({}, {"split": True}):
-        got = derived_fields_fused(*args, interpret=True,
-                                   all_defined=True, **kw)
-        for name in ref._fields:
-            ra, ga = getattr(ref, name), getattr(got, name)
-            rm = np.asarray(ra.mask)
-            assert np.array_equal(rm, np.asarray(ga.mask)), (kw, name)
-            assert np.array_equal(np.asarray(ra.values)[rm],
-                                  np.asarray(ga.values)[rm]), (kw, name)
+    ref = derived_fields_fused(*args, interpret=True, **BLK)
+    got = derived_fields_fused(*args, interpret=True, all_defined=True,
+                               **BLK)
+    _assert_bitwise(got, ref)
     # the interesting gates actually fired
     assert not np.asarray(ref.rh.mask)[0, 2, 2]
     assert not np.asarray(ref.tfp.mask)[-1, 7, 7]
 
     # stacked: 2-plane mask stack + lazy accessors
     got = derived_fields_fused(*args, interpret=True, stacked=True,
-                               all_defined=True)
+                               all_defined=True, **BLK)
     assert got.masks.shape == (2, nlev, ny, nx)
-    for i, name in enumerate(ref._fields):
-        ra, ga = getattr(ref, name), got.field(i)
-        rm = np.asarray(ra.mask)
-        assert np.array_equal(rm, np.asarray(ga.mask)), name
-        assert np.array_equal(np.asarray(ra.values)[rm],
-                              np.asarray(ga.values)[rm]), name
+    _assert_bitwise(got.as_fields(), ref)
 
 
 def test_fused_all_defined_padded_layout():
-    """Fast path on the canonical padded layout: dead rows/lanes are
-    allowed (they are not logically defined points) and the logical
-    region is bitwise-identical after trimming."""
-    from mi_fieldcalc_tpu.layout import pad_array, pad_field
-
+    """Fast path on arrays with dead rows/lanes: the logical region is
+    bitwise-identical after trimming."""
     nlev, ny, nx = 2, 21, 150
     args = _inputs(nlev, ny, nx, seed=11, undefs=False)
-    ref = derived_fields_fused(*args, interpret=True)
-    pargs = tuple(
-        pad_field(a) if hasattr(a, "mask") else
-        (pad_array(a) if a.ndim == 2 else a)
-        for a in args)
-    got = derived_fields_fused(*pargs, interpret=True, stacked=True,
-                               global_shape=(ny, nx), all_defined=True)
+    ref = derived_fields_fused(*args, interpret=True, **BLK)
+    got = derived_fields_fused(*_pad(args), interpret=True, stacked=True,
+                               global_shape=(ny, nx), all_defined=True,
+                               **BLK)
     for i, name in enumerate(ref._fields):
         ra = getattr(ref, name)
         gv = np.asarray(got.field(i).values)[..., :ny, :nx]
@@ -270,57 +205,65 @@ def test_fused_all_defined_padded_layout():
         rm = np.asarray(ra.mask)
         assert np.array_equal(rm, gm), name
         assert np.array_equal(np.asarray(ra.values)[rm], gv[rm]), name
-    # the 2 WRITTEN gate planes keep the canonical-layout invariant:
-    # masks False on padded dead rows/lanes (in-kernel region gate)
-    gates = np.asarray(got.masks)
-    assert not gates[..., ny:, :].any() and not gates[..., :, nx:].any()
 
-    # ... and so does EVERY stacked accessor path: the synthesized
-    # constant-True masks are ANDed with the carried `region` plane, so
-    # no caller-side trimming is needed on the 10 gate-free fields
-    assert got.region is not None
-    assert got.region.shape == (1,) + got.values.shape[-2:]
+
+@pytest.mark.parametrize("window", [(0, 0, 14, 24), (9, 13, 14, 24)])
+def test_fused_grid_offsets_window(window):
+    """A shard's view: the kernel run on a sub-block (with a 2-point halo
+    where the domain continues) at its global offsets, writing only its
+    window, equals that window of the whole-grid run — fills fire at
+    physical edges only, never at the seams."""
+    import jax.numpy as jnp
+    from mi_fieldcalc_tpu.field import Field
+
+    nlev, ny, nx = 2, 23, 37
+    args = _inputs(nlev, ny, nx, seed=13, undefs=True)
+    ref = derived_fields_fused(*args, interpret=True, stacked=True, **BLK)
+    r0, c0, h, w = window
+    y0, y1 = max(r0 - 2, 0), min(r0 + h + 2, ny)
+    x0, x1 = max(c0 - 2, 0), min(c0 + w + 2, nx)
+
+    def cut(a):
+        if isinstance(a, Field):
+            return Field(a.values[..., y0:y1, x0:x1],
+                         a.mask[..., y0:y1, x0:x1])
+        return a[..., y0:y1, x0:x1] if a.ndim >= 2 else a
+
+    got = derived_fields_fused(
+        *[cut(a) for a in args], interpret=True, stacked=True,
+        global_shape=(ny, nx), grid_offsets=jnp.array([y0, x0]),
+        out_window=(r0 - y0, c0 - x0, h, w), **BLK)
     for i in range(12):
-        for gm in (np.asarray(got.field(i).mask),
-                   np.asarray(got.as_fields()[i].mask)):
-            assert not gm[..., ny:, :].any(), i
-            assert not gm[..., :, nx:].any(), i
-
-    # per-field (non-stacked) fast-path output preserves the invariant
-    # for ALL 12 masks, including the synthesized constant-True ones
-    got_pf = derived_fields_fused(*pargs, interpret=True,
-                                  global_shape=(ny, nx), all_defined=True)
-    for name in ref._fields:
-        gm = np.asarray(getattr(got_pf, name).mask)
-        assert not gm[..., ny:, :].any() and not gm[..., :, nx:].any(), name
+        rf, gf = ref.field(i), got.field(i)
+        rm = np.asarray(rf.mask)[:, r0:r0 + h, c0:c0 + w]
+        assert np.array_equal(rm, np.asarray(gf.mask)), i
+        assert np.array_equal(
+            np.asarray(rf.values)[:, r0:r0 + h, c0:c0 + w][rm],
+            np.asarray(gf.values)[rm]), i
 
 
-def test_fused_all_defined_rejects_packed():
-    args = _inputs(1, 9, 9, seed=1, undefs=False)
+def test_fused_rejects_bad_map_planes():
+    """Per-level map factors need one plane per level; anything else is
+    refused rather than read at the wrong plane."""
+    nlev, ny, nx = 3, 9, 12
+    args = list(_inputs(nlev, ny, nx, seed=2))
+    args[7] = jnp.stack([args[7]] * (nlev - 1))
+    args[8] = jnp.stack([args[8]] * (nlev - 1))
     with pytest.raises(ValueError):
-        derived_fields_fused(*args, interpret=True, stacked=True,
-                             all_defined=True, packed_masks=True)
+        derived_fields_fused(*args, interpret=True, **BLK)
 
 
-def test_fused_all_defined_ty72():
-    """The fast path auto-picks TY=72 on tall grids (fewer VMEM blocks
-    admit the taller tile; 7% measured on chip) and stays bitwise equal
-    to the default path — exercised in interpret mode at a 72-divisible
-    tile split."""
-    from mi_fieldcalc_tpu.ops.fused import _pick_ty
-
-    assert _pick_ty(719, 1024, all_defined=True) == 72
-    assert _pick_ty(719, 1024) == 48                  # masked unchanged
-    assert _pick_ty(719, 1536, all_defined=True) == 48  # lane budget
-
-    nlev, ny, nx = 1, 80, 140
-    args = _inputs(nlev, ny, nx, seed=80, undefs=False)
-    ref = derived_fields_fused(*args, interpret=True)
-    got = derived_fields_fused(*args, interpret=True, all_defined=True,
-                               ty=72)
-    for name in ref._fields:
-        ra, ga = getattr(ref, name), getattr(got, name)
-        rm = np.asarray(ra.mask)
-        assert np.array_equal(rm, np.asarray(ga.mask)), name
-        assert np.array_equal(np.asarray(ra.values)[rm],
-                              np.asarray(ga.values)[rm]), name
+@pytest.mark.parametrize("maps", ["scalar", "per_level"])
+def test_fused_map_factor_forms(maps):
+    """Map factors as scalars or per-level stacks, as the jnp pipeline
+    accepts them."""
+    nlev, ny, nx = 2, 15, 22
+    args = list(_inputs(nlev, ny, nx, seed=31, undefs=True))
+    if maps == "scalar":
+        args[7], args[8] = jnp.float32(4e-7), jnp.float32(3e-7)
+    else:
+        args[7] = jnp.stack([args[7], 1.5 * args[7]])
+        args[8] = jnp.stack([args[8], 0.5 * args[8]])
+    ref = jax.jit(derived_fields)(*args)
+    got = derived_fields_fused(*args, interpret=True, **BLK)
+    _assert_matches(got, ref)

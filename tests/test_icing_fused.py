@@ -1,11 +1,12 @@
-"""Equivalence of the fused Pallas MINCOG kernel with the jnp path.
+"""The vessel-icing solvers through the entry points users call.
 
-The fused kernel (mi_fieldcalc_tpu/ops/icing_fused.py) traces the SAME
-``_mincog_core`` inside a VMEM tile, so values should agree to f32
-round-off (the XLA prologue fuses differently across the pallas_call
-boundary) and masks bit-for-bit.  Runs in Pallas interpret mode on the
-CPU test backend; the same kernel compiles natively through Mosaic on
-TPU (tools/perf_lab_mincog_fused.py checks agreement on the chip).
+``staging.run_vessel_icing_np`` (one decode of the 11 shared inputs,
+one jitted program per product) and the drop-in ``api`` must agree with
+the jnp solvers of ops/icing.py: masks bit-for-bit, values to the
+solver tolerance (rtol 2e-4, atol 1e-5: a jitted program and an eager
+call fuse the solver's iterations differently).  The solvers' own
+agreement with the oracle is pinned by tests/test_conformance*.py and
+tests/test_icing_solver.py.
 """
 
 import numpy as np
@@ -13,8 +14,10 @@ import pytest
 
 from mi_fieldcalc_tpu.field import UNDEF, from_sentinel
 from mi_fieldcalc_tpu.ops import icing
-from mi_fieldcalc_tpu.ops.icing_fused import (vessel_icing_mincog_fused,
-                                              vessel_icing_modstall_fused)
+from mi_fieldcalc_tpu.staging import run_vessel_icing_np
+
+NAMES = ("sal", "wave", "x_wind", "y_wind", "airtemp", "rh", "sst", "p",
+         "pw", "aice", "depth")
 
 
 def _inputs(ny, nx, seed=0, undefs=True, adversarial=False):
@@ -43,90 +46,83 @@ def _inputs(ny, nx, seed=0, undefs=True, adversarial=False):
     return (sal, wave, xw, yw, at, rh, sst, p, pw, aice, depth)
 
 
+def _np(fields):
+    return [np.asarray(f.to_sentinel(UNDEF)) for f in fields]
+
+
+def _staged(fields):
+    """The Fields staging builds from the sentinel arrays (the codec
+    fills undefined points with 0, as the solvers see them there)."""
+    from mi_fieldcalc_tpu import native
+    from mi_fieldcalc_tpu.field import Field
+    out = []
+    for a in _np(fields):
+        v, m, _ = native.decode_pad(a, *a.shape, UNDEF)
+        out.append(Field(v, m))
+    return out
+
+
+def _check(got, ref, rtol=2e-4, atol=1e-5):
+    mr = np.asarray(ref.mask)
+    gm = got != np.float32(UNDEF)
+    np.testing.assert_array_equal(mr, gm)
+    np.testing.assert_allclose(got[mr], np.asarray(ref.values)[mr],
+                               rtol=rtol, atol=atol, equal_nan=True)
+
+
 @pytest.mark.parametrize("ny,nx", [
-    (37, 61),     # ragged, single x chunk after padding
-    (9, 131),     # ragged, just past one lane tile
+    (37, 61),     # ragged
+    (9, 131),     # few rows
     (64, 256),    # tile-aligned
 ])
 @pytest.mark.parametrize("alt", [1, 2])
-def test_fused_matches_jnp(ny, nx, alt):
+def test_icing_np_mincog_matches_op(ny, nx, alt):
     args = _inputs(ny, nx, seed=ny + nx + alt)
     scal = (5.0, 0.52, 2.0, 11.0, alt)
     ref = icing.vessel_icing_mincog(*args, *scal)
-    got = vessel_icing_mincog_fused(*args, *scal, interpret=True)
-    mr = np.asarray(ref.mask)
-    np.testing.assert_array_equal(mr, np.asarray(got.mask))
-    vr = np.asarray(ref.values)[mr]
-    vg = np.asarray(got.values)[mr]
-    np.testing.assert_allclose(vg, vr, rtol=2e-4, atol=1e-5)
+    got = run_vessel_icing_np(*_np(args), *scal[:4], alt=alt,
+                              products=("mincog",))
+    _check(got["mincog"], ref)
 
 
-def test_fused_adversarial_wave_lanes():
+def test_icing_np_adversarial_wave_lanes():
     args = _inputs(48, 160, seed=7, adversarial=True)
     scal = (0.0, 0.0, 1.0, 4.0, 2)   # vs=0: vr=c, exercises tper/skip
-    ref = icing.vessel_icing_mincog(*args, *scal)
-    got = vessel_icing_mincog_fused(*args, *scal, interpret=True)
-    mr = np.asarray(ref.mask)
-    np.testing.assert_array_equal(mr, np.asarray(got.mask))
-    vr = np.asarray(ref.values)[mr]
-    vg = np.asarray(got.values)[mr]
-    np.testing.assert_allclose(vg, vr, rtol=2e-4, atol=1e-5)
+    # undefined wave lanes take the skip branch on their fill value, so
+    # the reference sees the staged values
+    args_s = _staged(args)
+    ref = icing.vessel_icing_mincog(*args_s, *scal)
+    got = run_vessel_icing_np(*_np(args), *scal[:4], alt=2,
+                              products=("mincog", "modstall"))
+    _check(got["mincog"], ref)
+    _check(got["modstall"], icing.vessel_icing_modstall(*args_s, *scal[:4]))
 
 
 @pytest.mark.parametrize("ny,nx", [(37, 61), (64, 256)])
 @pytest.mark.parametrize("adversarial", [False, True])
-def test_modstall_fused_matches_jnp(ny, nx, adversarial):
-    """The SHIPPED default (KERNEL_WARM_FP=0: the jnp path's exact
-    32-iteration warmup) must match the jnp path to kernel round-off —
-    a drop-in surface has to hold the documented 2e-3 icing tolerance
-    without knobs (round-2 verdict).  The opt-in early-armed projection
-    (warm_fp=8, a further 2.4x step-time win) is allowed the documented
-    bound (CONFORMANCE.md: rare points shift up to ~1e-2, the mass of
-    points stays at round-off)."""
+def test_icing_np_modstall_matches_op(ny, nx, adversarial):
+    """The ModStall product through staging holds the jnp solver's
+    values (the documented 2e-3 icing tolerance needs no knobs)."""
     args = _inputs(ny, nx, seed=3 * ny + nx, adversarial=adversarial)
     scal = (5.0, 0.52, 2.0, 11.0)
     ref = icing.vessel_icing_modstall(*args, *scal)
-    mr = np.asarray(ref.mask)
-    vr = np.asarray(ref.values)[mr]
-
-    exact = vessel_icing_modstall_fused(*args, *scal, interpret=True)
-    assert icing.KERNEL_WARM_FP == 0, "shipped default must be exact"
-    np.testing.assert_array_equal(mr, np.asarray(exact.mask))
-    np.testing.assert_allclose(np.asarray(exact.values)[mr], vr,
-                               rtol=2e-4, atol=1e-5)
-
-    warm = vessel_icing_modstall_fused(*args, *scal, interpret=True,
-                                       warm_fp=8)
-    np.testing.assert_array_equal(mr, np.asarray(warm.mask))
-    vw = np.asarray(warm.values)[mr]
-    d = np.abs(vw - vr)
-    assert d.max() < 5e-2, f"warm projection out of bound: {d.max()}"
-    assert (d > 2e-3).mean() < 1e-3, "too many points past conformance tol"
+    got = run_vessel_icing_np(*_np(args), *scal, products=("modstall",))
+    _check(got["modstall"], ref)
 
 
-def test_modstall_stacked_heights_matches_jnp():
-    """stack_heights solves the 19 heights as one stacked fixed point:
-    same op sequence per lane as the jnp path's exact 32-warmup sweep
-    (the sequential KERNEL path uses the early-armed projection, so the
-    jnp path is the apples-to-apples baseline), results to FMA
-    round-off, masks bit-for-bit.  Measured slower on the chip
-    (PERF.md) — kept as a documented option."""
+def test_api_modstall_matches_op():
+    """The drop-in ``vesselIcingModStall`` runs the jnp solver."""
+    import mi_fieldcalc_tpu.api as fc
+
     args = _inputs(40, 140, seed=21)
     scal = (5.0, 0.52, 2.0, 11.0)
     ref = icing.vessel_icing_modstall(*args, *scal)
-    got = vessel_icing_modstall_fused(*args, *scal, interpret=True,
-                                      stack_heights=True)
-    mr = np.asarray(ref.mask)
-    np.testing.assert_array_equal(mr, np.asarray(got.mask))
-    np.testing.assert_allclose(np.asarray(got.values)[mr],
-                               np.asarray(ref.values)[mr],
-                               rtol=2e-5, atol=1e-5)
+    _check(np.asarray(fc.vesselIcingModStall(*_np(args), *scal)), ref)
 
 
 def test_icing_sharded_matches_unsharded():
     """Icing ops are pointwise (radius 0): run_sharded on the CPU mesh
-    must reproduce the unsharded result bit-for-bit, for both the jnp
-    path and the fused kernel (interpret) inside shard_map."""
+    must reproduce the unsharded result bit-for-bit."""
     from mi_fieldcalc_tpu.parallel import grid_mesh, run_sharded
 
     args = _inputs(48, 256, seed=11)
@@ -142,25 +138,19 @@ def test_icing_sharded_matches_unsharded():
     np.testing.assert_array_equal(np.asarray(ref.values)[m],
                                   np.asarray(got.values)[m])
 
-    got_f = run_sharded(
-        lambda *f: vessel_icing_mincog_fused(*f, *scal, interpret=True),
-        mesh, 0, *args)
-    np.testing.assert_array_equal(np.asarray(ref.mask),
-                                  np.asarray(got_f.mask))
-    np.testing.assert_allclose(np.asarray(got_f.values)[m],
-                               np.asarray(ref.values)[m],
-                               rtol=2e-4, atol=1e-5)
 
-
-def test_fused_ty16_and_bad_ty():
+def test_icing_np_products_and_validation():
+    """Overland/Mertins come from the same single decode; an unknown
+    product raises."""
     args = _inputs(32, 140, seed=3)
-    scal = (5.0, 0.52, 2.0, 11.0, 1)
-    ref = vessel_icing_mincog_fused(*args, *scal, interpret=True, ty=8)
-    got = vessel_icing_mincog_fused(*args, *scal, interpret=True, ty=16)
-    np.testing.assert_array_equal(np.asarray(ref.mask),
-                                  np.asarray(got.mask))
-    np.testing.assert_allclose(np.asarray(got.values)[np.asarray(ref.mask)],
-                               np.asarray(ref.values)[np.asarray(ref.mask)],
-                               rtol=2e-5)
+    sent = _np(args)
+    got = run_vessel_icing_np(*sent, 5.0, 0.52, 2.0, 11.0,
+                              products=("overland", "mertins"))
+    sal, _, xw, yw, at, _, sst, _, _, aice, _ = args
+    _check(got["overland"],
+           icing.vessel_icing_overland(at, sst, xw, yw, sal, aice))
+    _check(got["mertins"],
+           icing.vessel_icing_mertins(at, sst, xw, yw, sal, aice))
     with pytest.raises(ValueError):
-        vessel_icing_mincog_fused(*args, *scal, interpret=True, ty=32)
+        run_vessel_icing_np(*sent, 5.0, 0.52, 2.0, 11.0,
+                            products=("nope",))

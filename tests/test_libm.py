@@ -1,8 +1,8 @@
 """Platform-deterministic transcendentals (mi_fieldcalc_tpu/_libm.py).
 
 These back every conversion core and the icing solver stages; the
-conformance story (180/180 goldens on TPU, PRECISION.md "TPU
-revalidation") rests on their accuracy staying libm-class.  Bounds are
+conformance story (the oracle goldens on every backend, replayed on the
+GPU by chip_smoke.py) rests on their accuracy staying libm-class.  Bounds are
 asserted against float64 references on dense random sweeps, and the
 libm edges (log of 0/negative/inf, pow's non-positive bases, tanh
 saturation) are pinned.
@@ -135,9 +135,7 @@ def test_pow_posc_accuracy_exner_domain():
 
 def test_pidcp_kernel_matches_surface_bitwise():
     """The fused kernel's Exner factor and the op surface's
-    pidcp_from_p are the same arithmetic — bitwise, on this backend
-    (the Mosaic lowering was probed bitwise-identical per primitive on
-    chip; tools/tpu_suite.py re-checks there)."""
+    pidcp_from_p are the same arithmetic — bitwise, on this backend."""
     from mi_fieldcalc_tpu import constants as C
     from mi_fieldcalc_tpu._libm import pow_posc_f32
 

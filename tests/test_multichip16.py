@@ -1,11 +1,9 @@
-"""16-device virtual-mesh dry run: the lev=2 x 2-D-spatial OVERLAP
-composition (driver hook ``dryrun_multichip``'s n >= 16 leg).
+"""16-device virtual-mesh run: the lev=2 x 2-D-spatial composition of
+the sharded pipeline kernel.
 
 The conftest pins this process to 8 virtual devices, so the 16-device
-mesh runs in a subprocess with its own XLA_FLAGS — the same recipe the
-driver uses.  Only the new composition leg runs there (the n < 16 legs
-are covered by the driver's own MULTICHIP run and
-tests/test_parallel_fused.py).
+mesh runs in a subprocess with its own XLA_FLAGS.  Smaller meshes are
+covered by tests/test_parallel_fused.py.
 """
 
 import os
@@ -36,11 +34,11 @@ xm = jnp.broadcast_to(args[7], (ny, nx))
 ym = jnp.broadcast_to(args[8], (ny, nx))
 fc = jnp.broadcast_to(args[9], (ny, nx))
 out = derived_fields_fused_sharded(
-    mesh, *args[:7], xm, ym, fc, interpret=True, overlap=True)
+    mesh, *args[:7], xm, ym, fc, interpret=True)
 jax.block_until_ready(out)
 assert out.th.values.shape == (4, ny, nx)
 
-# values equal the unsharded jnp reference (the overlap seams, the
+# values equal the unsharded jnp reference (the halo seams, the
 # lev-batch split, and the physical-edge fills all compose correctly)
 ref = jax.jit(derived_fields)(*args)
 for name in ref._fields:
@@ -50,11 +48,13 @@ for name in ref._fields:
     np.testing.assert_allclose(np.asarray(g.values)[rm],
                                np.asarray(r.values)[rm],
                                rtol=2e-5, atol=1e-5, err_msg=name)
-print("OK lev2x2x4 overlap @16")
+print("OK lev2x2x4 @16")
 """
 
 
 def test_lev2_spatial_overlap_16_devices():
+    """lev=2 x (2, 4) spatial mesh on 16 virtual devices: the sharded
+    kernel equals the unsharded pipeline."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env.pop("JAX_PLATFORMS", None)
@@ -62,4 +62,4 @@ def test_lev2_spatial_overlap_16_devices():
                          env=env, capture_output=True, text=True,
                          timeout=900)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "OK lev2x2x4 overlap @16" in res.stdout
+    assert "OK lev2x2x4 @16" in res.stdout

@@ -2,13 +2,14 @@
 
 End-to-end: numpy sentinel stacks -> native batch codec -> device Fields
 -> pipeline -> sentinel numpy, compared against the plain Field-API
-path.  Runs on the CPU test backend (the stager skips padding there
-because the jnp pipeline fills edges at array extent; the padded branch
-is exercised by bench.py / the fused-kernel tests on TPU).
+path.  On the CPU test backend the runners take the jnp pipeline; the
+kernel route is exercised here with the kernel in the Pallas
+interpreter, and compiled on the card by chip_smoke.py.
 """
 
 import numpy as np
 import jax
+import pytest
 import jax.numpy as jnp
 
 from mi_fieldcalc_tpu import from_sentinel
@@ -106,8 +107,8 @@ def test_stage_step_all_defined_gate():
     from mi_fieldcalc_tpu.staging import HostStager, _stage_step
 
     args = list(_inputs())          # has undefs in tk and q
-    stager = HostStager(k=4, pad=True)
-    _, _, all_defined, _ = _stage_step(tuple(args), stager, UNDEF, True)
+    stager = HostStager(k=4, pad=False)
+    _, _, all_defined = _stage_step(tuple(args), stager, UNDEF)
     assert not all_defined
 
     clean = list(_inputs(seed=9))
@@ -115,22 +116,20 @@ def test_stage_step_all_defined_gate():
     for a in clean[:5]:
         a[np.isnan(a)] = 1.0
         a[a == np.float32(UNDEF)] = 1.0
-    _, _, all_defined, _ = _stage_step(tuple(clean), stager, UNDEF, True)
+    _, _, all_defined = _stage_step(tuple(clean), stager, UNDEF)
     assert all_defined
 
     dirty_ps = [a.copy() if isinstance(a, np.ndarray) else a
                 for a in clean]
     dirty_ps[4][0, 0] = UNDEF       # a single undef in ps flips the gate
-    _, _, all_defined, _ = _stage_step(tuple(dirty_ps), stager, UNDEF,
-                                       True)
+    _, _, all_defined = _stage_step(tuple(dirty_ps), stager, UNDEF)
     assert not all_defined
 
 
 def test_encode_step_mask_map_layouts():
-    """_encode_step consumes the kernel's native mask stacks (12-plane,
-    9-plane dedup, 2-plane fast path) and produces identical sentinel
-    output dicts."""
-    from mi_fieldcalc_tpu.layout import pad_array, pad_field
+    """_encode_step consumes every stacked mask layout (12 planes from
+    the jnp pipeline, the kernel's 9 deduplicated planes and its 2-plane
+    all_defined gates) and produces identical sentinel output dicts."""
     from mi_fieldcalc_tpu.ops.fused import derived_fields_fused
     from mi_fieldcalc_tpu.staging import _encode_step
 
@@ -139,28 +138,28 @@ def test_encode_step_mask_map_layouts():
     for a in clean[:5]:
         a[np.isnan(a)] = 1.0
         a[a == np.float32(UNDEF)] = 1.0
-    tk, q, u, v = [pad_field(from_sentinel(a)) for a in clean[:4]]
-    ps = pad_field(from_sentinel(clean[4]))
-    al, bl = jnp.asarray(clean[5]), jnp.asarray(clean[6])
-    xm, ym = pad_array(clean[7]), pad_array(clean[8])
-    fc = jnp.asarray(clean[9])
+    args = ([from_sentinel(a) for a in clean[:5]]
+            + [jnp.asarray(a) for a in clean[5:]])
 
-    outs = {}
-    for tag, kw in (("12", dict(dedup_masks=False)),
-                    ("9", {}),
-                    ("2", dict(all_defined=True))):
-        o = derived_fields_fused(tk, q, u, v, ps, al, bl, xm, ym, fc,
-                                 interpret=True, stacked=True,
-                                 global_shape=(ny, nx), **kw)
+    ref = jax.jit(derived_fields)(*args)
+    outs = {"12": _encode_step(
+        np.stack([np.asarray(f.values) for f in ref]),
+        np.stack([np.asarray(f.mask) for f in ref]), ny, nx, UNDEF)}
+    for tag, kw in (("9", {}), ("2", dict(all_defined=True))):
+        o = derived_fields_fused(*args, interpret=True, stacked=True,
+                                 block=(8, 32), **kw)
         assert o.masks.shape[0] == int(tag)
         outs[tag] = _encode_step(np.asarray(o.values),
                                  np.asarray(o.masks), ny, nx, UNDEF)
     for tag in ("9", "2"):
         assert outs[tag].keys() == outs["12"].keys()
         for name in outs["12"]:
-            np.testing.assert_array_equal(outs["12"][name],
-                                          outs[tag][name],
+            r, g = outs["12"][name], outs[tag][name]
+            rm = r != np.float32(UNDEF)
+            np.testing.assert_array_equal(rm, g != np.float32(UNDEF),
                                           err_msg=f"{tag}/{name}")
+            np.testing.assert_allclose(g[rm], r[rm], rtol=2e-5,
+                                       err_msg=f"{tag}/{name}")
 
 
 def test_run_hlevel_suite_np():
@@ -247,64 +246,38 @@ def test_run_vessel_icing_np():
                             aice, depth, *scal, products=("nope",))
 
 
-def test_stage_levpack_feeds_kernel_abi():
-    """stage_levpack: codec-packed uint32 planes equal the in-device
-    pack of stage()'s masks (same bit order as ops/fused.py), and drive
-    the fused kernel's levpack ABI to the same values/masks as the
-    default mask path — the host-codec -> kernel contract end to end."""
-    from mi_fieldcalc_tpu.layout import pad_array
-    from mi_fieldcalc_tpu.ops.fused import derived_fields_fused
+@pytest.mark.parametrize("undefs", [True, False])
+def test_staging_kernel_route_matches_jnp_route(monkeypatch, undefs):
+    """run_derived_fields_np through the kernel (here in the Pallas
+    interpreter) and through the jnp pipeline give the same sentinel
+    outputs: the kernel's stacked layouts, the all_defined gate and the
+    codec's mask maps compose end to end."""
+    import functools
+    from mi_fieldcalc_tpu.ops import fused as fused_mod
 
-    nlev, ny, nx = 3, 21, 70
-    args = _inputs(nlev, ny, nx, seed=6)
-    stager = HostStager(k=4, pad=True)
-    fields = stager.stage(*args[:4])
-    counts = list(stager.counts)
-    lp_fields, packed = stager.stage_levpack(*args[:4])
-    assert stager.counts == counts
-    pk = np.asarray(packed)
-    assert pk.dtype == np.uint32 and pk.shape == (4, 24, 128)
-    sh = np.arange(nlev, dtype=np.uint32)[:, None, None]
-    for k, (f, lf) in enumerate(zip(fields, lp_fields)):
-        np.testing.assert_array_equal(np.asarray(f.values),
-                                      np.asarray(lf.values))
-        assert lf.mask is None
-        want = ((np.asarray(f.mask).astype(np.uint32) << sh)
-                .sum(0, dtype=np.uint32))
-        np.testing.assert_array_equal(pk[k], want)
-
-    from mi_fieldcalc_tpu.field import Field
-    from mi_fieldcalc_tpu.native import decode_pad
-    psv, psm, _ = decode_pad(args[4], 24, 128)
-    psf = Field(jnp.asarray(psv), jnp.asarray(psm))
-    al, bl = jnp.asarray(args[5]), jnp.asarray(args[6])
-    xm, ym = pad_array(args[7]), pad_array(args[8])
-    fc = jnp.asarray(args[9])
-    ref = derived_fields_fused(*fields, psf, al, bl, xm, ym, fc,
-                               interpret=True, stacked=True,
-                               global_shape=(ny, nx))
-    got = derived_fields_fused(*lp_fields, psf, al, bl, xm, ym, fc,
-                               interpret=True, stacked=True,
-                               levpack_masks=True,
-                               packed_input_masks=packed,
-                               global_shape=(ny, nx))
-    from mi_fieldcalc_tpu.models.pipeline import DerivedFields
-    np.testing.assert_array_equal(np.asarray(ref.values),
-                                  np.asarray(got.values))
-    for i in range(12):
-        np.testing.assert_array_equal(np.asarray(ref.field(i).mask),
-                                      np.asarray(got.field(i).mask),
-                                      err_msg=DerivedFields._fields[i])
+    monkeypatch.setattr(fused_mod, "derived_fields_fused", functools.partial(
+        fused_mod.derived_fields_fused, interpret=True, block=(8, 32)))
+    args = list(_inputs(2, 21, 70, seed=6))
+    if not undefs:
+        for a in args[:5]:
+            a[~np.isfinite(a) | (a == np.float32(UNDEF))] = 1.0
+    ref = run_derived_fields_np(*args, kernel=False)
+    got = run_derived_fields_np(*args, kernel=True)
+    assert got.keys() == ref.keys()
+    for name in ref:
+        rm = ref[name] != np.float32(UNDEF)
+        np.testing.assert_array_equal(rm, got[name] != np.float32(UNDEF),
+                                      err_msg=name)
+        np.testing.assert_allclose(got[name][rm], ref[name][rm], rtol=2e-5,
+                                   err_msg=name)
 
 
 def test_run_derived_fields_np_levpack_param():
-    """levpack=True is accepted everywhere (it only changes the device
-    ABI on TPU; off-TPU results are identical by construction)."""
+    """The LEV-bit-packed staging option is gone with the kernel ABI it
+    fed: passing it raises instead of being ignored."""
     args = _inputs(seed=8)
-    ref = run_derived_fields_np(*args)
-    got = run_derived_fields_np(*args, levpack=True)
-    for name in ref:
-        np.testing.assert_array_equal(got[name], ref[name])
+    with pytest.raises(TypeError):
+        run_derived_fields_np(*args, levpack=True)
 
 
 def test_run_hlevel_suite_np_align():

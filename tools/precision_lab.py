@@ -3,8 +3,7 @@ hard-part 3; VERDICT r2 item 4).
 
 The reference computes seaSoundSpeed (FieldCalculations.cc:1581-1593) and
 the vessel-icing solvers (FieldCalculationsVesselIcing.cc:95-103, 218-328)
-with double intermediates; this framework is float32 (TPU f64 is emulated
-and ~100x slower).  This lab quantifies what that costs, per op, on
+with double intermediates; this framework is float32.  This lab quantifies what that costs, per op, on
 ADVERSARIAL grids (ranges wider than production, plus targeted bands at
 the solver thresholds), against two truths:
 
@@ -14,7 +13,7 @@ the solver thresholds), against two truths:
   precision loss from formula/reassociation differences.
 
 It also measures a compensated-f32 variant of seaSoundSpeed (Dekker
-two-float products + Neumaier summation — no f64, TPU-friendly) to
+two-float products + Neumaier summation — no f64) to
 answer "would compensation buy an order of magnitude?" with a number.
 
 Usage:  python tools/precision_lab.py [--ny 96] [--nx 128] [--seed 5]
@@ -362,9 +361,8 @@ def run_suite(fc, lib, g, ny, nx, results, sound_speed=True,
 
     if x64_wave:
         # selective x64: ONLY the wave stage runs as the exact f64
-        # replica of the reference loop (host numpy; TPU f64 is
-        # emulated ~100x, so on-chip this stage would have to run
-        # host-side per step); every later stage stays the shipped f32.
+        # replica of the reference loop (host numpy); every later
+        # stage stays the shipped f32.
         # Answers "how much of the residual is the wave stage" with a
         # number, and prices the fix.
         import jax.numpy as jnp
@@ -400,20 +398,14 @@ def main():
     ap.add_argument("--ny", type=int, default=96)
     ap.add_argument("--nx", type=int, default=128)
     ap.add_argument("--seed", type=int, default=5)
-    ap.add_argument("--tpu", action="store_true",
-                    help="run our ops on the real TPU instead of the CPU "
-                         "backend: quantifies the TPU-libm (tanh/exp/pow) "
-                         "delta against the same oracle truths and writes "
-                         "PRECISION_TPU.json (VERDICT r3 missing #1 — the "
-                         "solver luck bands were calibrated against host "
-                         "libm; this measures whether they move on chip)")
     a = ap.parse_args()
 
     import jax
-    if not a.tpu:
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from mi_fieldcalc_tpu.utils.compile_cache import enable
+    enable()
     import mi_fieldcalc_tpu.api as fc
 
     lib = oracle_lib()
@@ -431,7 +423,7 @@ def main():
            "platform": _jax.devices()[0].platform, "results": results}
     path = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))),
-        "PRECISION_TPU.json" if a.tpu else "PRECISION.json")
+        "PRECISION.json")
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
 

@@ -3,17 +3,18 @@
 
 Drives the system's entry points at the operational grid (MET Norway's
 719x929, 32 hybrid levels) with seeded synthetic fields, checks every
-result against the jnp reference on the same card and the oracle
-goldens, and times the pipeline kernel against XLA's compilation of the
-plain pipeline.  One process uses the card throughout.
+result against the per-field jnp pipeline on the same card and the
+oracle goldens, and times the device programs and the served step.  One
+process uses the card throughout.
 
 Phases:
 
 1. device and set-up: the card, JAX, XLA flags, the native host codec;
 2. the main path: ``staging.run_derived_fields_np`` with undefs and fully
-   defined, 3 streamed steps, against ``jax.jit(models.derived_fields)``;
-3. pipeline kernel against XLA at the headline and ensemble sizes (device
-   step and end to end);
+   defined, 3 streamed steps, against ``jax.jit(models.derived_fields)``
+   on the same staged arrays;
+3. device step of the pipeline at the headline size in both mask
+   layouts, the served step's stages, and the ensemble summary;
 4. the oracle goldens replayed on the card (tests/test_conformance*.py);
 5. the other entry points: a 22-call ``api.batch()`` storm, the
    hybrid-level suite, the isobaric pipeline, the vessel-icing products;
@@ -40,8 +41,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 NLEV, NY, NX = 32, 719, 929
 UNDEF = 1e35
-#: kernel vs jnp on the same card (CONFORMANCE.md): masks bit for bit,
-#: values to this relative tolerance
+#: one program vs another on the same card (CONFORMANCE.md): masks bit
+#: for bit, values to this relative tolerance
 RTOL = 2e-5
 
 
@@ -154,6 +155,23 @@ def compare_sentinel(got, ref, tag, rtol=RTOL):
     check(not bad, f"{tag}: {bad}")
 
 
+def close(got, ref, celsius=False):
+    """Sentinel arrays of one output from two programs: undef positions
+    identical, values to RTOL.  A Celsius output (a Kelvin-scale value
+    minus t0) may also move by two ulps of its Kelvin operand, where one
+    program contracts the subtraction into an FMA and the other does
+    not (tests/test_fused_suite.py, CONFORMANCE.md)."""
+    import numpy as np
+    rm = ref < 1e34
+    if not np.array_equal(rm, got < 1e34):
+        return False
+    r, g = ref[rm], got[rm]
+    tol = RTOL * np.abs(r)
+    if celsius:
+        tol = tol + 2 * np.spacing(np.abs(r) + np.float32(273.15))
+    return bool(np.all(np.abs(g - r) <= tol))
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -173,21 +191,36 @@ def phase_setup():
     check(native.available(), "native codec did not load")
 
 
-def phase_main_path():
+def encoded_reference(staged, ny, nx):
+    """``jax.jit(models.derived_fields)`` on staged arrays, encoded to
+    sentinel arrays as staging does with the 12-plane mask layout."""
     import jax
     import numpy as np
+    from mi_fieldcalc_tpu import staging
     from mi_fieldcalc_tpu.models import derived_fields
-    from mi_fieldcalc_tpu.ops.fused import derived_fields_fused
+    out = jax.jit(derived_fields)(*staged)
+    return staging._encode_step(np.stack([np.asarray(f.values) for f in out]),
+                                np.stack([np.asarray(f.mask) for f in out]),
+                                ny, nx, UNDEF)
+
+
+def phase_main_path():
+    import numpy as np
+    from mi_fieldcalc_tpu import staging
     from mi_fieldcalc_tpu.staging import (run_derived_fields_np,
                                           stream_derived_fields_np)
 
-    # the same staged arrays through the kernel and through
-    # jax.jit(models.derived_fields) (kernel=False)
+    # the served path (2 or 9 mask planes) against the per-field
+    # pipeline on the same staged arrays (12 planes)
     for undefs in (True, False):
         a = pipeline_inputs(undefs=undefs)
+        staged, (ny, nx), alldef = staging._stage_step(
+            a, staging.HostStager(4, UNDEF, pad=False), UNDEF)
+        check(alldef == (not undefs), "all_defined gate")
         compare_sentinel(run_derived_fields_np(*a),
-                         run_derived_fields_np(*a, kernel=False),
-                         f"run_derived_fields_np undefs={undefs} vs jnp")
+                         encoded_reference(staged, ny, nx),
+                         f"run_derived_fields_np undefs={undefs} vs "
+                         f"jax.jit(derived_fields)")
     steps = [pipeline_inputs(seed=s, undefs=s != 2) for s in range(3)]
     singles = [run_derived_fields_np(*s) for s in steps]
     for k, out in enumerate(stream_derived_fields_np(iter(steps))):
@@ -196,17 +229,10 @@ def phase_main_path():
                   f"stream step {k} {name} differs from a single step")
     log("  stream_derived_fields_np: 3 steps equal single steps")
 
-    fargs = to_fields(pipeline_inputs())
-    c, _ = compiled(lambda *x: derived_fields_fused(*x, stacked=True),
-                    *fargs)
-    log(f"  kernel step memory: {c.memory_analysis()}")
-    compare_fields(c(*fargs), jax.jit(derived_fields)(*fargs),
-                   "kernel vs jnp (undefs)")
 
-
-def stage_breakdown(npa, reps=5):
-    """Median wall time of each stage of one served step (the kernel
-    route): decode + device_put, device program + fetch, encode."""
+def stage_breakdown(npa, tag, reps=7):
+    """Median wall time of each stage of one served step: decode +
+    device_put, device program + fetch, encode."""
     import jax
     from mi_fieldcalc_tpu import staging
 
@@ -217,64 +243,47 @@ def stage_breakdown(npa, reps=5):
         staged, (ny, nx), alldef = staging._stage_step(npa, stager, UNDEF)
         jax.block_until_ready(staged)
         t1 = time.perf_counter()
-        v, m = staging._compute_fetch(staged, alldef, True)
+        v, m = staging._compute_fetch(staged, alldef)
         t2 = time.perf_counter()
         staging._encode_step(v, m, ny, nx, UNDEF)
         t3 = time.perf_counter()
         for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
             parts[k].append(dt)
-    log("  served step stages (kernel route, undefs), median ms: "
-        + ", ".join(f"{k} {statistics.median(v) * 1e3:.1f}"
-                    for k, v in parts.items()))
+    total = [sum(x) for x in zip(*parts.values())]
+    log(f"  served step stages ({tag}), median ms: "
+        + ", ".join(f"{k} {statistics.median(v) * 1e3:.2f}"
+                    for k, v in parts.items())
+        + f"; whole step {statistics.median(total) * 1e3:.2f}")
 
 
-def phase_kernel_vs_xla():
+def phase_device_step():
     import functools
 
     import jax
     import jax.numpy as jnp
+    import numpy as np
     from mi_fieldcalc_tpu.field import Field
-    from mi_fieldcalc_tpu.models import derived_fields
+    from mi_fieldcalc_tpu.models import derived_fields, derived_fields_stacked
     from mi_fieldcalc_tpu.models.ensemble import ensemble_derived_summary
-    from mi_fieldcalc_tpu.ops.fused import derived_fields_fused
-    from mi_fieldcalc_tpu.staging import run_derived_fields_np
 
-    rows = {}
     npa = pipeline_inputs()
     fargs = jax.device_put(to_fields(npa))
-    for tag, fn in (("xla", derived_fields),
-                    ("kernel", functools.partial(derived_fields_fused,
-                                                 stacked=True))):
-        c, tc = compiled(fn, *fargs)
-        rows[tag] = (tc, timed(lambda: c(*fargs)))
-        log(f"  headline 32x719x929 {tag}: compile {tc:.2f} s, step "
-            f"median/min {ms(rows[tag][1])} ms")
     clean = tuple(Field(a.values, jnp.ones_like(a.mask))
                   if isinstance(a, Field) else a for a in fargs)
-    c, tc = compiled(functools.partial(derived_fields_fused, stacked=True,
-                                       all_defined=True), *clean)
-    log(f"  headline kernel all_defined: compile {tc:.2f} s, step "
-        f"median/min {ms(timed(lambda: c(*clean)))} ms")
-
-    # end to end: interleaved (xla, kernel) pairs, so drift hits both
-    clean_np = pipeline_inputs(undefs=False)
-    for tag, a in (("undefs", npa), ("fully defined", clean_np)):
-        run_derived_fields_np(*a, kernel=False)
-        run_derived_fields_np(*a, kernel=True)
-        tx, tk = [], []
-        for _ in range(15):
-            for kern, acc in ((False, tx), (True, tk)):
-                t0 = time.perf_counter()
-                run_derived_fields_np(*a, kernel=kern)
-                acc.append(time.perf_counter() - t0)
-        diff = sorted(k - x for k, x in zip(tk, tx))
-        log(f"  end to end run_derived_fields_np {tag}: xla median "
-            f"{statistics.median(tx) * 1e3:.1f} ms, kernel median "
-            f"{statistics.median(tk) * 1e3:.1f} ms, paired kernel-xla "
-            f"median {statistics.median(diff) * 1e3:.2f} ms (quartiles "
-            f"{diff[3] * 1e3:.2f}, {diff[11] * 1e3:.2f}); kernel faster "
-            f"in {sum(d < 0 for d in diff)}/15 pairs")
-    stage_breakdown(npa)
+    for tag, fn, args in (
+            ("derived_fields (12 masks)", derived_fields, fargs),
+            ("derived_fields_stacked (9 mask planes)",
+             derived_fields_stacked, fargs),
+            ("derived_fields_stacked all_defined (2 mask planes)",
+             functools.partial(derived_fields_stacked, all_defined=True),
+             clean)):
+        c, tc = compiled(fn, *args)
+        log(f"  headline 32x719x929 {tag}: compile {tc:.2f} s, step "
+            f"median/min {ms(timed(lambda: c(*args)))} ms")
+        if "9 mask" in tag:
+            log(f"  step memory: {c.memory_analysis()}")
+    stage_breakdown(npa, "undefs")
+    stage_breakdown(pipeline_inputs(undefs=False), "fully defined")
 
     # ensemble: 8 members x 8 levels
     nmem, nl = 8, 8
@@ -283,13 +292,10 @@ def phase_kernel_vs_xla():
     stack = [Field(jnp.stack([m[i].values for m in mem]),
                    jnp.stack([m[i].mask for m in mem])) for i in range(5)]
     eargs = jax.device_put(tuple(stack) + mem[0][5:])
-    # the summary runs the jnp pipeline fused into the member reductions
-    # (the kernel route measured slower there, PERF.md)
     c, tc = compiled(ensemble_derived_summary, *eargs)
     summ = c(*eargs)
     log(f"  ensemble 8x8x719x929 summary: compile {tc:.2f} s, step "
         f"median/min {ms(timed(lambda: c(*eargs)))} ms")
-    import numpy as np
     # (a spread may be inf where the reference's quirks let sentinel
     # values into defined points: divergence's mask, alevelhum's p gate)
     for f in list(summ.mean) + list(summ.spread) + [summ.prob_wind,
@@ -361,6 +367,10 @@ def phase_entry_points():
     sys.path.insert(0, HERE)
     from tools.baseline_configs import (CONFIG2_MODES, storm,
                                         storm_inputs)
+    #: storm outputs that are temperature differences or Celsius
+    #: temperatures (kIndex, showalterIndex, boydenIndex, cvtemp,
+    #: windCooling, pleveltemp mode 1)
+    STORM_CELSIUS = {0, 2, 3, 5, 7, 11}
 
     # 22-call api.batch() storm at 719x929, against eager calls
     g = storm_inputs(NY, NX)
@@ -369,15 +379,10 @@ def phase_entry_points():
         out = storm(fc, g)
     out = [np.asarray(o) for o in out]
     for k, (e, b) in enumerate(zip(eager, out)):
-        # one fused program vs one program per call: FMA contraction
-        # differs, so values agree to RTOL of each output's scale
-        em, bm = e < 1e34, b < 1e34
-        scale = float(np.max(np.abs(e[em]), initial=0.0))
-        check(np.array_equal(em, bm) and np.allclose(
-            b[em], e[em], rtol=RTOL, atol=RTOL * scale),
-            f"storm call {k}: batch differs from eager (max |d| "
-            f"{float(np.max(np.abs(b[em] - e[em]), initial=0.0)):.3g}, "
-            f"scale {scale:.3g})")
+        em = e < 1e34
+        check(close(b, e, celsius=k in STORM_CELSIUS),
+              f"storm call {k}: batch differs from eager (max |d| "
+              f"{float(np.max(np.abs(b[em] - e[em]), initial=0.0)):.3g})")
     t = timed(lambda: [np.asarray(o) for o in storm(fc, g)], reps=5)
 
     def batched():
@@ -408,14 +413,9 @@ def phase_entry_points():
                 h = qf if fam == "hum_q" else rhf
                 ref = ops.hlevelhum(lv(tkf), lv(h), psf, al, bl, c)
             r = np.asarray(ref.to_sentinel(UNDEF))
-            rm = r < 1e34
-            # to RTOL of the output's scale: a Celsius dewpoint crosses
-            # zero, where a last-ulp FMA shift is relative to the Kelvin
-            # operands (tests/test_fused_suite.py _assert_contract)
-            scale = float(np.max(np.abs(r[rm]), initial=0.0))
-            check(np.array_equal(rm, arr[k] < 1e34)
-                  and np.allclose(arr[k][rm], r[rm], rtol=RTOL,
-                                  atol=RTOL * scale),
+            celsius = (fam == "temp" and c == 1) or (fam != "temp"
+                                                     and 5 <= c <= 8)
+            check(close(arr[k], r, celsius),
                   f"run_hlevel_suite_np {key} level {k}")
     log(f"  run_hlevel_suite_np 10x719x929 {sorted(got)}: matches "
         f"per-level ops; step median/min "
@@ -475,14 +475,10 @@ def phase_gpu_tests():
 def phase_four():
     """The multi-device path on a (1, 2, 2) mesh, against one card."""
     import jax
-    import jax.numpy as jnp
     import numpy as np
-    from mi_fieldcalc_tpu.field import Field
     from mi_fieldcalc_tpu.models import derived_fields
     from mi_fieldcalc_tpu.models.pipeline import RADIUS
-    from mi_fieldcalc_tpu.ops.fused import derived_fields_fused
     from mi_fieldcalc_tpu.parallel import grid_mesh, run_sharded
-    from mi_fieldcalc_tpu.parallel.fused import derived_fields_fused_sharded
 
     check(len(jax.devices()) >= 4, f"--four needs 4 GPUs, found "
           f"{len(jax.devices())}")
@@ -490,35 +486,21 @@ def phase_four():
     log(f"  mesh {dict(mesh.shape)} over {mesh.devices.ravel().tolist()}")
     npa = pipeline_inputs()
     # 719x929 does not split in two: pad one dead row and column at the
-    # far edges (undefined); the kernel path fills at the logical edges
+    # far edges (undefined), on both sides of the comparison
     pad = [np.pad(a, [(0, 0)] * (a.ndim - 2) + [(0, 1), (0, 1)],
                   constant_values=UNDEF if k < 5 else 0)
            for k, a in enumerate(npa[:5])]
     pad += [npa[5], npa[6]] + [np.pad(a, [(0, 1), (0, 1)], mode="edge")
                                for a in npa[7:]]
-    fargs = to_fields(npa)
     pargs = to_fields(pad)
-    one = jax.jit(derived_fields)(*pargs)            # one card, padded
+    one = jax.jit(derived_fields)
     sharded = jax.jit(lambda *a: run_sharded(derived_fields, mesh, RADIUS,
                                              *a))
-    compare_fields(sharded(*pargs), one,
+    compare_fields(sharded(*pargs), one(*pargs),
                    "run_sharded(derived_fields) 4 cards vs 1")
     log(f"  run_sharded step median/min "
         f"{ms(timed(lambda: sharded(*pargs), reps=10))} ms; one card "
-        f"{ms(timed(lambda: jax.jit(derived_fields)(*pargs)))} ms")
-
-    ref = derived_fields_fused(*fargs, stacked=True)  # one card, logical
-    sh = derived_fields_fused_sharded(mesh, *pargs, global_shape=(NY, NX),
-                                      stacked=True)
-    trim = type(ref)(values=sh.values[..., :NY, :NX],
-                     masks=sh.masks[..., :NY, :NX])
-    compare_fields(trim, ref.as_fields(),
-                   "derived_fields_fused_sharded 4 cards vs 1")
-    t = timed(lambda: derived_fields_fused_sharded(
-        mesh, *pargs, global_shape=(NY, NX), stacked=True), reps=10)
-    log(f"  derived_fields_fused_sharded step median/min {ms(t)} ms")
-    one_t = timed(lambda: derived_fields_fused(*fargs, stacked=True))
-    log(f"  one-card kernel step median/min {ms(one_t)} ms")
+        f"{ms(timed(lambda: one(*pargs)))} ms")
 
 
 def main(argv=None) -> int:
@@ -548,7 +530,7 @@ def main(argv=None) -> int:
                          text=True).stdout.strip()
     log(f"card: {smi}")
     phases = ([phase_setup, phase_four] if opts.four else
-              [phase_setup, phase_main_path, phase_kernel_vs_xla,
+              [phase_setup, phase_main_path, phase_device_step,
                phase_goldens, phase_entry_points, phase_gpu_tests])
     failed = []
     for ph in phases:

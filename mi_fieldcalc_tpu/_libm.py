@@ -166,8 +166,7 @@ def pow_posc_f32(x, c):
     clamp + two-step ln2 reduction, and the ``jnp.power`` fallback
     branch (all evaluated on every lane under ``where``).  Arithmetic
     is mul/add/select/int/bitcast only, like the rest of this module,
-    so the pipeline kernel and the jnp op surface evaluate the same
-    arithmetic.
+    so every backend evaluates the same arithmetic.
     """
     c_d = float(c)
     c_hi = float(np.float32(round(c_d * 4096.0) / 4096.0))  # 12-bit hi

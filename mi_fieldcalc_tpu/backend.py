@@ -1,34 +1,20 @@
-"""The one place that decides between the hand-written kernel and plain
-JAX, and that reads the device's platform for it.
+"""The one place that reads the device's platform.
 
-The library is a NumPy drop-in and runs wherever JAX does.  On a GPU the
-derived-field pipeline runs the Pallas kernel of ops/fused.py compiled
-for the card; on any other backend it runs the jnp ops under ``jit``.
-The Pallas interpreter is reached only when a caller asks for it
-explicitly (``interpret=True``, which the CPU tests do).
+The library is a NumPy drop-in and runs the same jnp programs under
+``jit`` wherever JAX does; nothing in it branches on the platform.
+Measurement scripts call :func:`require_gpu` so that they never report
+numbers from another backend.
 """
 
 from __future__ import annotations
 
-__all__ = ["platform", "use_kernel", "require_gpu"]
-
-
-def platform() -> str:
-    """Platform of the default device (``"gpu"``, ``"cpu"``, ...)."""
-    import jax
-    return jax.devices()[0].platform
-
-
-def use_kernel(interpret: bool = False) -> bool:
-    """Whether the pipeline kernel runs: compiled on a GPU, or in the
-    Pallas interpreter when ``interpret`` is passed explicitly."""
-    return bool(interpret) or platform() == "gpu"
+__all__ = ["require_gpu"]
 
 
 def require_gpu(what: str) -> None:
-    """Raise unless the default device is a GPU (measurement scripts
-    must never carry on, and report numbers, on another backend)."""
-    p = platform()
+    """Raise unless the default device is a GPU."""
+    import jax
+    p = jax.devices()[0].platform
     if p != "gpu":
         raise RuntimeError(f"{what} needs a GPU; JAX's default device is "
                            f"{p!r}")

@@ -10,8 +10,6 @@ All constants carry the same float32 values as the reference
 
 from __future__ import annotations
 
-import contextvars
-
 import numpy as np
 import jax.numpy as jnp
 
@@ -74,13 +72,6 @@ def ewt_defined(l):
     return (l >= 0) & (l < N_EWT - 1)
 
 
-#: Pair-lookup override for :func:`_ewt_pair`, set by the GPU pipeline
-#: kernel (ops/fused.py) while it traces the thermo formulas: there a
-#: gather from the table in device memory replaces the select chain.
-#: Both return exact table values.
-EWT_PAIR_LOOKUP = contextvars.ContextVar("mf_ewt_pair", default=None)
-
-
 def _ewt_pair(ls):
     """``(ewt[ls], ewt[ls+1])`` for ``ls`` in [0, 39] — WITHOUT a gather.
 
@@ -93,9 +84,6 @@ def _ewt_pair(ls):
     so the lookup costs ~120 vector ops/point and ZERO extra HBM traffic.
     The selected entries are exact table values (bit-exact lookup).
     """
-    lookup = EWT_PAIR_LOOKUP.get()
-    if lookup is not None:
-        return lookup(ls)
     e0 = jnp.full(ls.shape, EWT[0], jnp.float32)
     e1 = jnp.full(ls.shape, EWT[1], jnp.float32)
     for k in range(1, N_EWT - 1):
@@ -231,10 +219,7 @@ def pidcp_from_p(p):
     band on an earlier accelerator.  Round 5 switched the composition from
     ``exp_f32(kappa*log_f32(p))`` to the narrow-domain
     ``_libm.pow_posc_f32`` (<= ~1.2 ulp measured on the Exner domain vs
-    ~4.4 for the exp∘log chain, tests/test_libm.py) — cheap enough that
-    the flagship fused kernel runs the SAME arithmetic, closing the
-    round-4 hardware-pow tier split (jnp path and kernel are bitwise
-    equal on pow-using ops over the positive pressure domain).
+    ~4.4 for the exp∘log chain, tests/test_libm.py).
 
     Edge semantics: a DEFINED lane can still carry p <= 0 (e.g. a
     hybrid level with alevel = blevel = 0), where the reference's powf
@@ -242,12 +227,9 @@ def pidcp_from_p(p):
     kappa is a fixed positive constant those edges are CONSTANTS, so
     the select needs no backend pow (a ``jnp.power`` fallback branch
     measurably perturbed XLA:CPU fusion of the shared pow chain at the
-    last ulp on vector-remainder lanes, breaking the kernel-vs-jnp
-    bitwise contract on ordinary lanes — round-5 regression).  NaN
-    propagates through the same select (x > 0 and x == 0 both false).
-    The flagship fused kernel (ops/fused.py) keeps the pure
-    positive-domain pow_posc_f32: its pipeline's defined lanes always
-    have a + b*ps > 0; masked-lane garbage differs harmlessly."""
+    last ulp on vector-remainder lanes, breaking a bitwise contract on
+    ordinary lanes — round-5 regression).  NaN propagates through the
+    same select (x > 0 and x == 0 both false)."""
     from ._libm import pow_posc_f32
     x = jnp.asarray(p, jnp.float32) * p0inv
     edge = jnp.where(x == 0, jnp.float32(0.0), jnp.float32(jnp.nan))

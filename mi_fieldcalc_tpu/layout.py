@@ -3,17 +3,14 @@
 A *padded layout*: grids padded once (rows to a multiple of 8, columns
 to a multiple of 128), carried padded through whole pipelines, and
 trimmed back to the logical extent when results leave the device.  The
-staging layer and the GPU kernel do not need it (the kernel masks its
-ragged edges); it remains for callers that pad grids to split them
+staging layer does not need it (XLA handles ragged grids); it remains
+for callers that pad grids to split them
 evenly over a device mesh (:func:`padded_shape_sharded`) and for the
 tile-aligned ingest grid (ingest.py).  Padding rules:
 
 * ``Field`` values pad with zeros and masks pad with ``False`` — dead
   points are simply undefined points, so every mask-respecting operator
   is automatically correct on padded grids.
-* Kernels that need the *physical* grid boundary (``fillEdges``) take
-  the logical ``(ny, nx)`` as ``global_shape`` and patch logical edges,
-  never padded ones (ops/fused.py does this, as it does for shard seams).
 * Reductions respect masks, so dead lanes never contaminate counts or
   means.
 
@@ -69,17 +66,7 @@ def padded_shape_sharded(ny: int, nx: int, gy: int = 1,
                          gx: int = 1) -> tuple[int, int]:
     """Global padded extent for a ``(gy, gx)``-decomposed grid such that
     every shard's *local* block is tile-aligned: ``ny_p/gy % 8 == 0`` and
-    ``nx_p/gx % 128 == 0``.  The sharded fused pipeline exchanges 8-row
-    y-halos (one row tile) and no x-halo when ``gx == 1``, so local
-    alignment makes every per-shard Pallas transfer tile-aligned too.
-    With ``gx > 1`` the non-overlap path's 2-lane x-halos make the
-    kernel's input blocks ``nx_loc + 4`` lanes (ragged — the ~2x
-    ragged-DMA penalty applies to those reads), while the overlap path
-    runs the interior kernel on the exact tile-aligned local block and
-    recomputes the seam columns from narrow strips — at 64+ chips the
-    2-D split's smaller padded footprint wins either way (PERF.md "2-D
-    (gy, gx) decomposition"; footprint is AOT byte accounting, not a
-    measured multi-chip step time)."""
+    ``nx_p/gx % 128 == 0``."""
     return (_up(-(-ny // gy), ROW_TILE) * gy,
             _up(-(-nx // gx), LANE_TILE) * gx)
 

@@ -10,7 +10,7 @@ memory per op.
 
 from .pipeline import (  # noqa: F401
     DerivedFields, DerivedFieldsStacked, derived_fields,
-    derived_fields_plevel, derived_fields_isobaric, STANDARD_PLEVELS,
+    derived_fields_stacked, derived_fields_plevel, derived_fields_isobaric, STANDARD_PLEVELS,
 )
 from .ensemble import (  # noqa: F401
     EnsembleSummary, ensemble_derived_summary,

@@ -58,10 +58,7 @@ def ensemble_derived_summary(tk: Field, q: Field, u: Field, v: Field,
 
     Returns an :class:`EnsembleSummary`; the mean/spread cover all 12
     derived fields, probabilities are computed for wind speed and for
-    1-hour temperature advection below 0 (cooling).  The jnp pipeline
-    runs here rather than the GPU kernel: XLA fuses it into the member
-    reductions, so the 12 member fields never reach device memory, and
-    on an H100 that measured faster than the kernel (PERF.md).
+    1-hour temperature advection below 0 (cooling).
     """
     per_member = jax.vmap(
         lambda tkm, qm, um, vm, psm: derived_fields(

@@ -37,7 +37,8 @@ from ..ops import (
     pleveltemp,
 )
 
-__all__ = ["DerivedFields", "derived_fields", "derived_fields_plevel",
+__all__ = ["DerivedFields", "DerivedFieldsStacked", "derived_fields",
+           "derived_fields_stacked", "derived_fields_plevel",
            "derived_fields_isobaric", "STANDARD_PLEVELS", "RADIUS"]
 
 #: Composed stencil radius of the pipeline (TFP = gradient ∘ gradient).
@@ -65,11 +66,11 @@ class DerivedFieldsStacked(NamedTuple):
     ``(12, nlev, ny, nx)`` float32 array plus one mask array, in
     :class:`DerivedFields` field order.
 
-    This is the output layout of the GPU pipeline kernel
-    (``derived_fields_fused(..., stacked=True)``) and of the staging
-    layer: two buffers instead of 24, and downstream consumers (file
-    writers, ensemble reducers) usually want the planes contiguous.
-    ``masks`` is an int8 (or bool) plane stack in one of three layouts:
+    This is the output layout of :func:`derived_fields_stacked` and of
+    the staging layer: two buffers instead of 24, and downstream
+    consumers (file writers, ensemble reducers) usually want the planes
+    contiguous.  ``masks`` is an int8 (or bool) plane stack in one of
+    three layouts:
     the 9 DEDUPLICATED planes (td/duc/dv are identical to rh/the/vo by
     construction), indexed through :data:`MASK9`; the 2 data-dependent
     gate planes of the ``all_defined`` path, indexed through
@@ -159,6 +160,24 @@ def derived_fields(tk: Field, q: Field, u: Field, v: Field, ps: Field,
                          tadv=tadv, gradt=gradt, tfp=tfp)
 
 
+def derived_fields_stacked(*args, all_defined: bool = False
+                           ) -> DerivedFieldsStacked:
+    """:func:`derived_fields` in the :class:`DerivedFieldsStacked`
+    layout: the 12 value planes and the 9 deduplicated mask planes
+    (``MASK9``), or with ``all_defined=True`` only the 2 data-dependent
+    gate planes (``MASK2``).  ``all_defined=True`` asserts every input
+    point is defined (the reference's ``inAllDefined`` shortcut,
+    FieldCalculations.cc:100); the other 10 outputs are then defined
+    everywhere, so fewer mask bytes reach the host."""
+    out = derived_fields(*args)
+    layout = (DerivedFieldsStacked.MASK2 if all_defined
+              else DerivedFieldsStacked.MASK9)
+    first = [layout.index(k) for k in range(max(layout) + 1)]
+    return DerivedFieldsStacked(
+        values=jnp.stack([f.values for f in out]),
+        masks=jnp.stack([out[i].mask for i in first]))
+
+
 #: Standard isobaric surfaces for the 3-D vertical pipeline (hPa).
 STANDARD_PLEVELS = (1000.0, 925.0, 850.0, 700.0, 500.0, 400.0, 300.0,
                     250.0, 200.0, 150.0, 100.0)
@@ -174,8 +193,7 @@ def derived_fields_isobaric(tk: Field, q: Field, u: Field, v: Field,
     surfaces (log-p linear, mask-aware — ops/vertical.py), then run the
     full derived-field suite on the interpolated stack.  One jittable
     program; the interpolation's level reductions fuse with the
-    elementwise suite under XLA (on an H100 this measured faster than
-    handing the interpolated stack to the pipeline kernel, PERF.md)."""
+    elementwise suite under XLA."""
     from ..ops import hlevel_to_plevel
 
     plevels = tuple(float(t) for t in plevels)

@@ -354,10 +354,8 @@ def decode_pad_levpack_batch(arrays, ny_p: Optional[int] = None,
     contiguous tile-aligned values block ``[K, nlev, ny_p, nx_p]`` plus
     LEV-bit-packed mask planes ``[K, ny_p, nx_p]`` uint32 (bit L =
     level L defined; dead rows/lanes all-zero) in a single parallel
-    pass.  The planes feed the fused kernel's levpack ABI directly
-    (``derived_fields_fused(levpack_masks=True,
-    packed_input_masks=...)``, ops/fused.py) so the mask payload
-    shipped per step is nlev/32 of the uint8 block.  Requires 3-D
+    pass, so a consumer of packed masks ships nlev/32 of the uint8
+    block per step (no device program consumes the planes yet).  Requires 3-D
     inputs with nlev <= 32; returns ``(values, pmask, counts)``.
     """
     from .layout import padded_shape
@@ -425,15 +423,14 @@ def encode_trim_batch(values, mask, ny: int, nx: int,
     block carry FEWER planes than the values block: ``mask_map[f]`` is
     value plane f's plane index in the mask block, and ``-1`` means
     "constant defined" (plain trim, no sentinel pass).  This serves the
-    fused kernel's deduplicated 9-plane stack
-    (``DerivedFieldsStacked.MASK9``) and the ALL_DEFINED fast path's
-    2-plane stack (``MASK2``) without expanding masks host-side.
+    pipeline's deduplicated 9-plane stack
+    (``DerivedFieldsStacked.MASK9``) and the all-defined 2-plane stack
+    (``MASK2``) without expanding masks host-side.
 
     A **uint32** mask block of shape ``[km, ny_p, nx_p]`` against 4-D
-    values ``[K, nlev, ny_p, nx_p]`` is the fused kernel's LEV-packed
-    layout (``levpack_masks=True``: bit L of plane ``mask_map[f]`` =
-    level L of field f defined); it is consumed in place — no host-side
-    unpack pass."""
+    values ``[K, nlev, ny_p, nx_p]`` is a LEV-packed layout (bit L of
+    plane ``mask_map[f]`` = level L of field f defined); it is consumed
+    in place — no host-side unpack pass."""
     v = _f32c(values)
     ny_p, nx_p = v.shape[-2:]
     if ny_p < ny or nx_p < nx:

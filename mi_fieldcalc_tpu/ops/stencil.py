@@ -17,13 +17,6 @@ interior and by construction on the edges.
 On a multi-device mesh these same kernels run per-shard with halo rings
 exchanged between devices (see :mod:`mi_fieldcalc_tpu.parallel.halo`);
 ``fill_edges`` is then applied only at *physical* domain boundaries.
-
-The five stencils of the derived-field pipeline (vorticity, divergence,
-advection, |grad f|, thermal front parameter) are written once, as
-``*_core`` functions over a neighbour accessor ``nb(a, dy, dx)`` that
-returns ``a`` at ``(y+dy, x+dx)``.  Here the accessor is a circular
-shift (:func:`roll_at`); the GPU pipeline kernel (ops/fused.py) passes
-one that issues shifted loads, so both paths trace the same formulas.
 """
 
 from __future__ import annotations
@@ -54,17 +47,6 @@ def _vals(x: ArrayLike):
 
 
 # -- neighbour shifts --------------------------------------------------------
-
-def roll_at(a, dy: int = 0, dx: int = 0):
-    """Neighbour accessor of the array path: ``a`` at ``(y+dy, x+dx)`` by
-    circular shift (the wrapped rows/columns are the ones fill_edges
-    overwrites)."""
-    if dy:
-        a = jnp.roll(a, -dy, axis=-2)
-    if dx:
-        a = jnp.roll(a, -dx, axis=-1)
-    return a
-
 
 def _xm(a):  # value at (y, x-1)  == flat i-1
     return jnp.roll(a, 1, axis=-1)
@@ -139,66 +121,6 @@ def _check_min_size(f: Field, name: str) -> None:
     require(nx >= 3 and ny >= 3, f"{name}: grid must be at least 3x3")
 
 
-# -- pipeline stencil cores (shared with the GPU kernel) ---------------------
-#
-# Each core takes the neighbour accessor ``nb`` first, then value arrays
-# and mask arrays, and returns ``(values, mask)`` BEFORE fill_edges.  The
-# expression order is the reference's; keep it when editing, since the
-# array path and the kernel must agree in the last ulp.
-
-def gradient_abs_core(nb, f, fm, xm, ym):
-    """|grad f| (gradient compute 3)."""
-    dfdx = _f32(0.5) * nb(xm) * (nb(f, 0, 1) - nb(f, 0, -1))
-    dfdy = _f32(0.5) * nb(ym) * (nb(f, 1, 0) - nb(f, -1, 0))
-    out = jnp.sqrt(dfdx * dfdx + dfdy * dfdy)
-    return out, nb(fm, 0, -1) & nb(fm, 0, 1) & nb(fm, -1, 0) & nb(fm, 1, 0)
-
-
-def relvort_core(nb, u, um, v, vm, xm, ym):
-    """dv/dx - du/dy (FieldCalculations.cc:1843-1873)."""
-    out = _f32(0.5) * nb(xm) * (nb(v, 0, 1) - nb(v, 0, -1)) \
-        - _f32(0.5) * nb(ym) * (nb(u, 1, 0) - nb(u, -1, 0))
-    return out, _vort_mask(nb, um, vm)
-
-
-def divergence_core(nb, u, um, v, vm, xm, ym):
-    """du/dx + dv/dy; the mask is vorticity's (cc:1927, see divergence)."""
-    out = _f32(0.5) * nb(xm) * (nb(u, 0, 1) - nb(u, 0, -1)) \
-        + _f32(0.5) * nb(ym) * (nb(v, 1, 0) - nb(v, -1, 0))
-    return out, _vort_mask(nb, um, vm)
-
-
-def _vort_mask(nb, um, vm):
-    return nb(vm, 0, -1) & nb(vm, 0, 1) & nb(um, -1, 0) & nb(um, 1, 0)
-
-
-def advection_core(nb, f, fm, u, um, v, vm, xm, ym, hours: float):
-    """-(u df/dx + v df/dy) * 3600*hours (FieldCalculations.cc:1942-1983)."""
-    scale = _f32(-3600.0 * hours)
-    out = (nb(u) * _f32(0.5) * nb(xm) * (nb(f, 0, 1) - nb(f, 0, -1))
-           + nb(v) * _f32(0.5) * nb(ym) * (nb(f, 1, 0) - nb(f, -1, 0))) * scale
-    mask = (nb(um) & nb(vm) & nb(fm, 0, -1) & nb(fm, 0, 1) & nb(fm, -1, 0)
-            & nb(fm, 1, 0))
-    return out, mask
-
-
-def tfp_core(nb, t, tm, a, am, xm, ym):
-    """Thermal front parameter from T and the edge-filled |grad T| field
-    ``(a, am)`` (FieldCalculations.cc:2266-2309)."""
-    dadx = _f32(0.5) * nb(xm) * (nb(a, 0, 1) - nb(a, 0, -1))
-    dady = _f32(0.5) * nb(ym) * (nb(a, 1, 0) - nb(a, -1, 0))
-    ac = nb(a)
-    nonzero = ac != 0
-    ainv = 1 / jnp.where(nonzero, ac, _f32(1))
-    dtdxa = _f32(0.5) * nb(xm) * (nb(t, 0, 1) - nb(t, 0, -1)) * ainv
-    dtdya = _f32(0.5) * nb(ym) * (nb(t, 1, 0) - nb(t, -1, 0)) * ainv
-    out = -(dadx * dtdxa + dady * dtdya)
-    mask = (nb(tm, -1, 0) & nb(tm, 0, -1) & nb(tm, 0, 1) & nb(tm, 1, 0)
-            & nb(am, -1, 0) & nb(am, 0, -1) & nb(am) & nb(am, 0, 1)
-            & nb(am, 1, 0) & nonzero)
-    return out, mask
-
-
 # -- basic derivative operators ----------------------------------------------
 
 def gradient(f: Field, xmapr: ArrayLike, ymapr: ArrayLike, compute: int) -> Field:
@@ -219,7 +141,10 @@ def gradient(f: Field, xmapr: ArrayLike, ymapr: ArrayLike, compute: int) -> Fiel
         out = _f32(0.5) * ym * (_yp(v) - _ym(v))
         mask = _ym(m) & _yp(m)
     elif compute == 3:
-        out, mask = gradient_abs_core(roll_at, v, m, xm, ym)
+        dfdx = _f32(0.5) * xm * (_xp(v) - _xm(v))
+        dfdy = _f32(0.5) * ym * (_yp(v) - _ym(v))
+        out = jnp.sqrt(dfdx * dfdx + dfdy * dfdy)
+        mask = _xm(m) & _xp(m) & _ym(m) & _yp(m)
     else:  # 4: laplacian
         d2fdx = _xm(v) - _f32(2) * v + _xp(v)
         d2fdy = _ym(v) - _f32(2) * v + _yp(v)
@@ -232,8 +157,11 @@ def gradient(f: Field, xmapr: ArrayLike, ymapr: ArrayLike, compute: int) -> Fiel
 def relvort(u: Field, v: Field, xmapr: ArrayLike, ymapr: ArrayLike) -> Field:
     """Relative vorticity dv/dx - du/dy (FieldCalculations.cc:1843-1873)."""
     _check_min_size(u, "relvort")
-    return _finish(*relvort_core(roll_at, u.values, u.mask, v.values,
-                                 v.mask, _vals(xmapr), _vals(ymapr)))
+    xm, ym = _vals(xmapr), _vals(ymapr)
+    out = _f32(0.5) * xm * (_xp(v.values) - _xm(v.values)) \
+        - _f32(0.5) * ym * (_yp(u.values) - _ym(u.values))
+    mask = _xm(v.mask) & _xp(v.mask) & _ym(u.mask) & _yp(u.mask)
+    return _finish(out, mask)
 
 
 def absvort(u: Field, v: Field, xmapr: ArrayLike, ymapr: ArrayLike,
@@ -255,8 +183,11 @@ def divergence(u: Field, v: Field, xmapr: ArrayLike, ymapr: ArrayLike) -> Field:
     v[i+-nx]; reproduced as-is for parity.
     """
     _check_min_size(u, "divergence")
-    return _finish(*divergence_core(roll_at, u.values, u.mask, v.values,
-                                    v.mask, _vals(xmapr), _vals(ymapr)))
+    xm, ym = _vals(xmapr), _vals(ymapr)
+    out = _f32(0.5) * xm * (_xp(u.values) - _xm(u.values)) \
+        + _f32(0.5) * ym * (_yp(v.values) - _ym(v.values))
+    mask = _xm(v.mask) & _xp(v.mask) & _ym(u.mask) & _yp(u.mask)
+    return _finish(out, mask)
 
 
 def advection(f: Field, u: Field, v: Field, xmapr: ArrayLike,
@@ -264,9 +195,13 @@ def advection(f: Field, u: Field, v: Field, xmapr: ArrayLike,
     """Scalar advection -(u df/dx + v df/dy) * 3600*hours
     (FieldCalculations.cc:1942-1983)."""
     _check_min_size(f, "advection")
-    return _finish(*advection_core(roll_at, f.values, f.mask, u.values,
-                                   u.mask, v.values, v.mask, _vals(xmapr),
-                                   _vals(ymapr), hours))
+    xm, ym = _vals(xmapr), _vals(ymapr)
+    scale = _f32(-3600.0 * hours)
+    fv = f.values
+    out = (u.values * _f32(0.5) * xm * (_xp(fv) - _xm(fv))
+           + v.values * _f32(0.5) * ym * (_yp(fv) - _ym(fv))) * scale
+    mask = u.mask & v.mask & _xm(f.mask) & _xp(f.mask) & _ym(f.mask) & _yp(f.mask)
+    return _finish(out, mask)
 
 
 def jacobian(f1: Field, f2: Field, xmapr: ArrayLike, ymapr: ArrayLike) -> Field:
@@ -395,9 +330,20 @@ def thermal_front_parameter(t: Field, xmapr: ArrayLike,
     (FieldCalculations.cc:2266-2309).  Composed radius-2 stencil through the
     intermediate |grad T| field."""
     _check_min_size(t, "thermalFrontParameter")
+    xm, ym = _vals(xmapr), _vals(ymapr)
     absdelt = gradient(t, xmapr, ymapr, 3)
-    return _finish(*tfp_core(roll_at, t.values, t.mask, absdelt.values,
-                             absdelt.mask, _vals(xmapr), _vals(ymapr)))
+    a, tv = absdelt.values, t.values
+    dadx = _f32(0.5) * xm * (_xp(a) - _xm(a))
+    dady = _f32(0.5) * ym * (_yp(a) - _ym(a))
+    nonzero = a != 0
+    ainv = 1 / jnp.where(nonzero, a, _f32(1))
+    dtdxa = _f32(0.5) * xm * (_xp(tv) - _xm(tv)) * ainv
+    dtdya = _f32(0.5) * ym * (_yp(tv) - _ym(tv)) * ainv
+    out = -(dadx * dtdxa + dady * dtdya)
+    mask = (_ym(t.mask) & _xm(t.mask) & _xp(t.mask) & _yp(t.mask)
+            & _ym(absdelt.mask) & _xm(absdelt.mask) & absdelt.mask
+            & _xp(absdelt.mask) & _yp(absdelt.mask) & nonzero)
+    return _finish(out, mask)
 
 
 # -- momentum coordinates ------------------------------------------------------

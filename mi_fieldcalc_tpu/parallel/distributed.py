@@ -13,7 +13,7 @@ Typical multi-process entry::
     from mi_fieldcalc_tpu.parallel import distributed, grid_mesh
     distributed.initialize("host0:1234", num_processes=2, process_id=i)
     mesh = grid_mesh(grid_shape=(ny, nx))  # all devices
-    out = derived_fields_fused_sharded(mesh, *fields)
+    out = run_sharded(derived_fields, mesh, RADIUS, *fields)
 
 Per-host I/O: each host feeds only its local shard via
 ``jax.make_array_from_process_local_data`` (helpers below), so a global

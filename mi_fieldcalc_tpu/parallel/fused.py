@@ -1,19 +1,11 @@
-"""Sharded execution of the derived-field pipelines.
+"""Sharded execution of the isobaric and ensemble pipelines.
 
-The one-device path (:func:`mi_fieldcalc_tpu.ops.fused.
-derived_fields_fused`) runs one kernel launch per device; on a
-``(lev, gy, gx)`` mesh each shard runs the SAME kernel on its local block
-padded with a radius-2 halo ring (:mod:`..parallel.halo`; XLA hands the
-``ppermute`` collectives to NCCL), with the kernel's physical-edge fills
-driven by the shard's *global* grid offsets — so boundary patches fire
-only on shards that touch the domain edge, never at shard seams.  The
-kernel writes only the shard's own rows and columns, so no crop follows.
-
-Level-batch parallelism over ``lev`` needs no communication; the spatial
-decomposition over ``(gy, gx)`` exchanges one packed halo ring per step.
-The isobaric and ensemble pipelines run their jnp form per shard
-(:func:`..parallel.halo.run_sharded`), as they do on one device.
-Equivalence with the unsharded paths is tested on a virtual CPU mesh in
+Both run their jnp form per shard through
+:func:`..parallel.halo.run_sharded` (radius-2 halo rings; XLA hands the
+``ppermute`` collectives to NCCL), as the hybrid-level pipeline does
+(``run_sharded(derived_fields, mesh, RADIUS, ...)``).  Columns and the
+member axis stay local, so both need ``lev == 1``.  Equivalence with the
+unsharded paths is tested on a virtual CPU mesh in
 tests/test_parallel_fused.py.
 """
 
@@ -23,20 +15,11 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax import lax
 from jax.sharding import Mesh
 
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
-
 from ..field import Field
-from ..ops.fused import DEFAULT_BLOCK, derived_fields_fused
-from .mesh import partition_spec
 
-__all__ = ["derived_fields_fused_sharded", "derived_fields_isobaric_sharded",
-           "ensemble_summary_sharded"]
+__all__ = ["derived_fields_isobaric_sharded", "ensemble_summary_sharded"]
 
 #: Composed stencil radius of the pipeline (TFP through |grad T|).
 RADIUS = 2
@@ -58,100 +41,8 @@ def _require_local_rows(mesh: Mesh, ny: int, nx: int):
             f"columns per shard: ({ny}, {nx}) over (gy={gy}, gx={gx})")
 
 
-def _shard_kernel(mesh: Mesh, nyg: int, nxg: int, interpret: bool,
-                  all_defined: bool, block, tk, q, u, v, ps, al, bl, xm,
-                  ym):
-    """Inside ``shard_map``: exchange the halo ring of every array the
-    kernel indexes, then run the kernel on the padded local block with
-    its output window set to the shard's own rows and columns."""
-    from .halo import packed_exchange_cols, packed_exchange_rows
-    names = mesh.axis_names
-    gy, gx = _spatial(mesh)
-    hy, hx = (RADIUS if gy > 1 else 0), (RADIUS if gx > 1 else 0)
-    fields = (tk, q, u, v, ps)
-    flat = [f.values for f in fields]
-    if not all_defined:
-        # masks ride as int8: bool ppermute support varies by backend
-        flat += [f.mask.astype(jnp.int8) for f in fields]
-    flat += [xm, ym]
-    if hy:
-        flat = packed_exchange_rows(flat, hy, mesh)
-    if hx:
-        flat = packed_exchange_cols(flat, hx, mesh)
-    vals = flat[:5]
-    masks = [None] * 5 if all_defined else flat[5:10]
-    tkp, qp, up, vp, psp = (Field(a, m) for a, m in zip(vals, masks))
-    ny_loc, nx_loc = tk.values.shape[-2:]
-    iy = lax.axis_index("gy") if "gy" in names else 0
-    ix = lax.axis_index("gx") if "gx" in names else 0
-    offs = jnp.stack([iy * ny_loc - hy, ix * nx_loc - hx]).astype(jnp.int32)
-    return derived_fields_fused(
-        tkp, qp, up, vp, psp, al, bl, flat[-2], flat[-1], None,
-        interpret=interpret, global_shape=(nyg, nxg), grid_offsets=offs,
-        out_window=(hy, hx, ny_loc, nx_loc), stacked=True,
-        all_defined=all_defined, block=block)
-
-
 def _maps(a, ny, nx):
     return jnp.broadcast_to(jnp.asarray(a, jnp.float32), (ny, nx))
-
-
-def _stacked_specs(mesh: Mesh, ndim: int):
-    from jax.sharding import PartitionSpec
-    from ..models.pipeline import DerivedFieldsStacked
-    spec = PartitionSpec(None, *partition_spec(ndim, mesh))
-    return DerivedFieldsStacked(values=spec, masks=spec)
-
-
-def derived_fields_fused_sharded(mesh: Mesh, tk: Field, q: Field, u: Field,
-                                 v: Field, ps: Field, alevel, blevel,
-                                 xmapr, ymapr, fcoriolis=None,
-                                 interpret: bool = False,
-                                 global_shape=None,
-                                 stacked: bool = False,
-                                 all_defined: bool = False,
-                                 block=DEFAULT_BLOCK):
-    """Run the pipeline kernel per shard over ``mesh``.
-
-    Arguments as :func:`..models.pipeline.derived_fields`; map factors
-    are broadcast to ``(ny, nx)``.  ``global_shape`` is the logical
-    ``(ny, nx)`` when the global arrays carry dead trailing rows/columns
-    (e.g. padded to a multiple of the mesh); edge fills fire at the
-    logical boundary.  Returns a sharded :class:`DerivedFields`, or the
-    :class:`DerivedFieldsStacked` layout with ``stacked=True``.
-    ``all_defined=True`` asserts every input point is defined: no mask
-    is exchanged or read, and the kernel writes its 2 gate planes.
-    """
-    del fcoriolis  # none of the 12 outputs uses it
-    nlev, ny, nx = tk.values.shape
-    nyg, nxg = global_shape if global_shape is not None else (ny, nx)
-    _require_local_rows(mesh, ny, nx)
-    args = (tk, q, u, v, ps, jnp.asarray(alevel, jnp.float32),
-            jnp.asarray(blevel, jnp.float32), _maps(xmapr, ny, nx),
-            _maps(ymapr, ny, nx))
-    st = _sharded_fn(mesh, (nyg, nxg), bool(interpret), bool(all_defined),
-                     tuple(block))(args)
-    return st if stacked else st.as_fields()
-
-
-@functools.lru_cache(maxsize=64)
-def _sharded_fn(mesh: Mesh, global_shape, interpret: bool,
-                all_defined: bool, block):
-    """One jitted shard_map program per (mesh, logical grid) — repeat
-    calls dispatch the cached executable instead of re-tracing."""
-    nyg, nxg = global_shape
-
-    def body(args):
-        return _shard_kernel(mesh, nyg, nxg, interpret, all_defined, block,
-                             *args)
-
-    fld3 = Field(partition_spec(3, mesh), partition_spec(3, mesh))
-    fld2 = Field(partition_spec(2, mesh), partition_spec(2, mesh))
-    in_specs = ((fld3,) * 4 + (fld2,) + (partition_spec(1, mesh),) * 2
-                + (partition_spec(2, mesh),) * 2)
-    return jax.jit(shard_map(body, mesh=mesh, in_specs=(in_specs,),
-                             out_specs=_stacked_specs(mesh, 3),
-                             check_vma=False))
 
 
 def derived_fields_isobaric_sharded(mesh: Mesh, tk: Field, q: Field,
@@ -160,9 +51,8 @@ def derived_fields_isobaric_sharded(mesh: Mesh, tk: Field, q: Field,
                                     plevels):
     """Sharded 3-D isobaric pipeline: hybrid -> pressure-level
     interpolation followed by the 12 derived fields, domain-decomposed
-    over ``mesh`` with :func:`..parallel.halo.run_sharded` (jnp under
-    XLA: on one H100 the kernel tail measured slower than XLA's fused
-    pipeline, PERF.md).  Columns never cross the (gy, gx) decomposition;
+    over ``mesh`` with :func:`..parallel.halo.run_sharded`.  Columns
+    never cross the (gy, gx) decomposition;
     level parallelism does not apply (columns span all levels), so the
     mesh must have ``lev == 1``.
 

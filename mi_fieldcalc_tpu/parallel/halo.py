@@ -61,8 +61,7 @@ def _exchange_1d(a, h: int, axis: int, name: str, size: int):
         pad[axis] = (h, h)
         return jnp.pad(a, pad)
     # bool collectives ride as int8: ppermute support for i1 operands
-    # varies by backend (the fused path casts for the same reason —
-    # parallel/fused.py), and masks are the halo payload here too
+    # varies by backend, and masks are the halo payload here too
     if a.dtype == jnp.bool_:
         return _exchange_1d(a.astype(jnp.int8), h, axis, name,
                             size).astype(jnp.bool_)
@@ -153,8 +152,8 @@ def packed_sendrecv(lo_strips: Sequence, hi_strips: Sequence, name: str,
 
     Unlike :func:`packed_strip_exchange` (which slices the edge strips of
     whole arrays itself), this takes the strips ready-made — needed when
-    the payload is not a plain edge slice, e.g. the 2-D overlap path's
-    y-extended corner columns (parallel/fused.py).  Strips must be
+    the payload is not a plain edge slice, e.g. y-extended corner
+    columns.  Strips must be
     shard-uniform (every shard sends the same shapes) and share one
     trailing dim within each dtype class — the packer flattens to
     ``(-1, last)`` and a mismatched trailing dim would silently
@@ -300,8 +299,7 @@ def _crop(a, r: int):
     return a[..., r:-r, r:-r]
 
 
-def run_sharded(op, mesh: Mesh, radius: int, *args, offset_arg=None,
-                **kwargs):
+def run_sharded(op, mesh: Mesh, radius: int, *args, **kwargs):
     """Run stencil operator ``op`` with (gy, gx) domain decomposition.
 
     ``args`` may be Fields, arrays (``[..., ny, nx]``, sharded on the
@@ -309,14 +307,6 @@ def run_sharded(op, mesh: Mesh, radius: int, *args, offset_arg=None,
     (closed over statically).  ``radius`` is the op's *composed* stencil
     radius (1 for simple derivatives, 2 for plevelqvector /
     thermal_front_parameter).  ``kwargs`` are static.
-
-    ``offset_arg`` names a keyword of ``op`` that receives each shard's
-    traced ``(row, col)`` global position of local element (0, 0)
-    (negative on halo rows) — how offset-aware Pallas kernels
-    (``grid_offsets`` on the suite kernels' ALL_DEFINED fast path and
-    on ``derived_fields_fused``) compose their logical-region gates
-    with the decomposition; pair it with a static
-    ``global_shape=(logical ny, nx)`` kwarg on padded grids.
 
     Returns the same pytree-of-Fields the unsharded op returns, with
     global values identical to the unsharded run (sharded-vs-unsharded
@@ -353,15 +343,10 @@ def run_sharded(op, mesh: Mesh, radius: int, *args, offset_arg=None,
             row0=iy * ny_loc - radius, col0=ix * nx_loc - radius,
             nyg=ny_loc * gy, nxg=nx_loc * gx,
             mesh_axes=tuple(n for n in ("gy", "gx") if n in names))
-        kw = kwargs
-        if offset_arg is not None:
-            kw = dict(kwargs)
-            kw[offset_arg] = jnp.stack(
-                [sctx.row0, sctx.col0]).astype(jnp.int32)
         token = _stencil_mod._EDGE_FILL.set(ctx.fill)
         token2 = _stencil_mod._SHARD_CTX.set(sctx)
         try:
-            out = op(*jax.tree_util.tree_unflatten(treedef, padded), **kw)
+            out = op(*jax.tree_util.tree_unflatten(treedef, padded), **kwargs)
         finally:
             _stencil_mod._EDGE_FILL.reset(token)
             _stencil_mod._SHARD_CTX.reset(token2)

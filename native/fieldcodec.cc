@@ -379,11 +379,9 @@ void mf_encode_trim_batch_map(const float* v, const uint8_t* mask,
 
 // LEV-packed batch staging (ABI v5): decode+pad K same-shape
 // [nlev, ny, nx] sentinel stacks in ONE parallel region, emitting the
-// mask bit-planes the fused kernel's levpack ABI consumes directly
-// (derived_fields_fused(levpack_masks=True, packed_input_masks=...)):
-// `pmask` is one [K, ny_p, nx_p] uint32 block with bit L = level L
-// defined (dead rows/lanes all-zero), matching the kernel's in-program
-// pack ((m << lev).sum(0), ops/fused.py).  The mask payload shipped
+// mask bit-planes: `pmask` is one [K, ny_p, nx_p] uint32 block with
+// bit L = level L defined (dead rows/lanes all-zero), the order of
+// ((m << lev).sum(0)).  The mask payload shipped
 // per step is nlev/32 of the uint8 block.  Values block and counts as
 // mf_decode_pad_batch.  Requires nlev <= 32.
 void mf_decode_pad_levpack_batch(const float** srcs, int64_t k,

@@ -2,7 +2,9 @@
 (ops/fused_suite.py) with the per-op calls they compose.
 
 The suites call the exact ``levels.*`` implementations inside one
-program, so results are bitwise identical to the jitted ops.
+program.  XLA fuses that program differently from a single-op one, so
+results agree to rtol 2e-5 rather than bit for bit, and an output in
+degrees Celsius within two ulps of its Kelvin operand (``CELSIUS``).
 """
 
 import jax
@@ -15,17 +17,28 @@ from mi_fieldcalc_tpu.ops import alevelhum, aleveltemp
 from mi_fieldcalc_tpu.ops.fused_suite import alevel_suite_fused
 
 
-def _assert_contract(got, ref, tag):
-    """CONFORMANCE.md's one-program-vs-per-op contract on defined
-    points: values to rtol 2e-5 of the output's scale.  An XLA
-    multi-output fusion may contract ``a * b - c`` into one FMA where a
-    single-op program does not; on an output that crosses zero (a
-    temperature in Celsius) that last-ulp shift is relative to the
-    operands, not to the small result."""
-    fin = np.isfinite(ref)
-    scale = float(np.max(np.abs(ref[fin]), initial=0.0))
-    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5 * scale,
-                               equal_nan=True, err_msg=str(tag))
+#: outputs in degrees Celsius: temperature mode 1 and the dewpoint modes
+#: 5-8 (9-12 add t0 back).  Each is a Kelvin-scale value minus t0, and
+#: XLA may contract ``tk * pidcp - t0`` into one FMA in one program and
+#: not in another.  That moves the result by up to an ulp of the Kelvin
+#: operand, not of the small Celsius result: on this module's inputs
+#: aleveltemp mode 1 differs at 8013 of 9912 points, at most 1.3e-5
+#: (13967 ulps of the -0.0101 C result, 0.43 ulp of 273 K).
+CELSIUS = frozenset({("temp", 1), ("hum", 5), ("hum", 6), ("hum", 7),
+                     ("hum", 8)})
+
+
+def _assert_contract(got, ref, tag, celsius=False):
+    """Defined points of a suite output against the per-op call: values
+    to rtol 2e-5 (CONFORMANCE.md's one-program contract), and a Celsius
+    output also within two ulps of its Kelvin operand."""
+    tol = 2e-5 * np.abs(ref)
+    if celsius:
+        tol = tol + 2 * np.spacing(np.abs(ref) + np.float32(273.15))
+    with np.errstate(invalid="ignore"):
+        ok = ((got == ref) | (np.abs(got - ref) <= tol)
+              | (np.isnan(got) & np.isnan(ref)))
+    assert ok.all(), (tag, got[~ok][:5], ref[~ok][:5])
 
 
 def _inputs(nlev=3, ny=25, nx=140, seed=0):
@@ -59,11 +72,13 @@ def test_suite_kernel_matches_jnp(temps, hq, hr):
     ref += [jax.jit(lambda tk, h, p, c=c:
                     alevelhum(tk, h, p, compute=c))(tk, rh, p) for c in hr]
     assert len(got) == len(ref)
+    modes = ([("temp", c) for c in temps]
+             + [("hum", c) for c in tuple(hq) + tuple(hr)])
     for k, (r, g) in enumerate(zip(ref, got)):
         rm = np.asarray(r.mask)
         assert np.array_equal(rm, np.asarray(g.mask)), (k, "mask")
         _assert_contract(np.asarray(g.values)[rm], np.asarray(r.values)[rm],
-                         k)
+                         modes[k], celsius=modes[k] in CELSIUS)
 
 
 def test_suite_kernel_padded_layout():
@@ -471,6 +486,10 @@ def test_suite_random_request_sets():
                     t, h, p, compute=c))(t_, rh_, p_))
             return outs
 
+        modes = ([("temp", c) for c in kw["temps"]]
+                 + [("hum", c) for c in kw["hums_q"] + kw["hums_rh"]]
+                 + [("other", c) for c in kw["thes"] + kw["ducts_q"]
+                    + kw["ducts_rh"]])
         for fields, allm in (((tk, q, rh, p), False), (clean, True)):
             got = alevel_suite_fused(*fields, all_defined=allm, **kw)
             ref = ref_for(fields)
@@ -483,7 +502,8 @@ def test_suite_random_request_sets():
                 # NaN outputs are legitimate: compare equal_nan
                 _assert_contract(np.asarray(g.values)[rm],
                                  np.asarray(r.values)[rm],
-                                 (trial, allm, k, kw))
+                                 (trial, allm, k, kw),
+                                 celsius=modes[k] in CELSIUS)
 
 
 def test_suite_kernel_pidcp_edge_lanes_bitwise():

@@ -1,5 +1,5 @@
 """16-device virtual-mesh run: the lev=2 x 2-D-spatial composition of
-the sharded pipeline kernel.
+the sharded pipeline (``run_sharded``).
 
 The conftest pins this process to 8 virtual devices, so the 16-device
 mesh runs in a subprocess with its own XLA_FLAGS.  Smaller meshes are
@@ -21,9 +21,9 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 
 from __graft_entry__ import _example_inputs
-from mi_fieldcalc_tpu.parallel import grid_mesh
-from mi_fieldcalc_tpu.parallel.fused import derived_fields_fused_sharded
+from mi_fieldcalc_tpu.parallel import grid_mesh, run_sharded
 from mi_fieldcalc_tpu.models import derived_fields
+from mi_fieldcalc_tpu.models.pipeline import RADIUS
 
 n = 16
 assert len(jax.devices()) == n, jax.devices()
@@ -33,8 +33,8 @@ args = _example_inputs(4, ny, nx)
 xm = jnp.broadcast_to(args[7], (ny, nx))
 ym = jnp.broadcast_to(args[8], (ny, nx))
 fc = jnp.broadcast_to(args[9], (ny, nx))
-out = derived_fields_fused_sharded(
-    mesh, *args[:7], xm, ym, fc, interpret=True)
+out = jax.jit(lambda *a: run_sharded(derived_fields, mesh, RADIUS, *a))(
+    *args[:7], xm, ym, fc)
 jax.block_until_ready(out)
 assert out.th.values.shape == (4, ny, nx)
 
@@ -54,7 +54,7 @@ print("OK lev2x2x4 @16")
 
 def test_lev2_spatial_overlap_16_devices():
     """lev=2 x (2, 4) spatial mesh on 16 virtual devices: the sharded
-    kernel equals the unsharded pipeline."""
+    pipeline equals the unsharded one."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env.pop("JAX_PLATFORMS", None)

@@ -248,8 +248,8 @@ def test_encode_trim_batch_mask_map():
 def test_decode_pad_levpack_batch_matches_batch():
     """LEV-packed staging (ABI v5): values and counts equal the plain
     batch decode; the uint32 planes equal the manual bit pack (bit L =
-    level L defined — the fused kernel's in-program pack order,
-    ops/fused.py), with dead rows/lanes all-zero; native == fallback."""
+    level L defined), with dead rows/lanes all-zero; native ==
+    fallback."""
     rng = np.random.default_rng(11)
     nlev, ny, nx = 5, 13, 37
     arrays = [_sentinel_grid(rng, (nlev, ny, nx)) for _ in range(3)]

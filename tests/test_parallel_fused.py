@@ -1,11 +1,10 @@
-"""Sharded-vs-unsharded equivalence of the pipeline kernel.
+"""Sharded-vs-unsharded equivalence of the derived-field pipelines.
 
-Runs the kernel per shard (Pallas interpreter) on the 8-device CPU mesh
-and compares against the single-device pipeline: masks bit-for-bit,
-values to f32 round-off.  This validates the halo exchange, the
-global-offset-driven physical-edge fills (no fills at shard seams), and
-the output windows.  ``block`` varies the kernel's tile shape, which
-changes the launch grid inside every shard but never a result.
+Runs the jnp pipelines per shard through ``run_sharded`` on the
+8-device CPU mesh and compares against the single-device programs:
+masks bit-for-bit, values to f32 round-off.  This validates the halo
+exchange, the physical-edge fills (none at shard seams), the crop of
+the halo ring, and the stacked output layouts the staging layer serves.
 """
 
 import functools
@@ -14,30 +13,46 @@ import jax
 import numpy as np
 import pytest
 
-from mi_fieldcalc_tpu.models.pipeline import derived_fields
-from mi_fieldcalc_tpu.parallel import grid_mesh
-from mi_fieldcalc_tpu.parallel.fused import derived_fields_fused_sharded
+from mi_fieldcalc_tpu.models.pipeline import (RADIUS, derived_fields,
+                                              derived_fields_stacked)
+from mi_fieldcalc_tpu.parallel import grid_mesh, run_sharded
 
-from test_fused import _inputs
+from test_pipeline_stacked import _inputs, _with_gates
 
 
-@pytest.mark.parametrize("block", [(8, 32), (4, 64)])
+def _sharded(mesh, op=derived_fields, **kw):
+    return jax.jit(lambda *a: run_sharded(op, mesh, RADIUS, *a, **kw))
+
+
+def _pad_defined(args, ny_p, nx_p):
+    """Pad grids to ``(ny_p, nx_p)`` with defined edge copies (so a fully
+    defined input stays fully defined)."""
+    from mi_fieldcalc_tpu.field import Field
+
+    def pad(a):
+        w = [(0, 0)] * (a.ndim - 2) + [(0, ny_p - a.shape[-2]),
+                                       (0, nx_p - a.shape[-1])]
+        return jax.numpy.pad(a, w, mode="edge")
+    return tuple(Field(pad(a.values), pad(a.mask)) if hasattr(a, "mask")
+                 else (pad(a) if a.ndim >= 2 else a) for a in args)
+
+
+@pytest.mark.parametrize("undefs", [True, False])
 @pytest.mark.parametrize("mesh_shape,nlev,ny,nx", [
     ((1, 2, 2), 2, 48, 64),
     ((2, 2, 1), 4, 40, 137),    # lev-sharded + y-split, ragged nx
     ((1, 4, 1), 2, 64, 96),     # deep y-split
     ((1, 1, 4), 2, 32, 128),    # x-split only
 ])
-def test_sharded_fused_matches_unsharded(mesh_shape, nlev, ny, nx, block):
+def test_sharded_fused_matches_unsharded(mesh_shape, nlev, ny, nx, undefs):
     ndev = int(np.prod(mesh_shape))
     if len(jax.devices()) < ndev:
         pytest.skip("not enough devices")
     mesh = grid_mesh(mesh_shape, devices=jax.devices()[:ndev])
-    args = _inputs(nlev, ny, nx, seed=ny + nx, undefs=True)
+    args = _inputs(nlev, ny, nx, seed=ny + nx, undefs=undefs)
 
     ref = jax.jit(derived_fields)(*args)
-    got = derived_fields_fused_sharded(mesh, *args, interpret=True,
-                                       block=block)
+    got = _sharded(mesh)(*args)
 
     for name in ref._fields:
         rv = np.asarray(getattr(ref, name).values)
@@ -104,40 +119,36 @@ def test_sharded_isobaric_rejects_lev_mesh():
         derived_fields_isobaric_sharded(mesh, *args, plevels=(900.0,))
 
 
-@pytest.mark.parametrize("block", [(8, 32), (4, 64)])
+@pytest.mark.parametrize("undefs", [True, False])
 @pytest.mark.parametrize("mesh_shape,nlev,ny,nx", [
     ((1, 2, 1), 2, 45, 130),    # pads to (48, 256): dead rows + lanes
     ((2, 2, 1), 2, 41, 96),     # lev-sharded, pads to (48, 128)
-    ((1, 2, 2), 2, 45, 140),    # gx > 1: ragged locals allowed, still exact
+    ((1, 2, 2), 2, 45, 140),
 ])
-def test_sharded_padded_layout_matches(mesh_shape, nlev, ny, nx, block):
-    """Shard-aligned padded layout (layout.padded_shape_sharded): padded
-    global + logical global_shape gives logical outputs identical to the
-    unsharded jnp pipeline; dead rows/lanes stay masked and fills fire at
-    logical edges only."""
+def test_sharded_padded_layout_matches(mesh_shape, nlev, ny, nx, undefs):
+    """Shard-aligned padded layout (layout.padded_shape_sharded): the
+    sharded pipeline on the padded grid equals the one-device pipeline
+    on the same padded grid, dead rows and lanes included."""
     from mi_fieldcalc_tpu.layout import (pad_array, pad_field,
-                                         padded_shape_sharded, trim_field)
+                                         padded_shape_sharded)
 
     ndev = int(np.prod(mesh_shape))
     if len(jax.devices()) < ndev:
         pytest.skip("not enough devices")
     mesh = grid_mesh(mesh_shape, devices=jax.devices()[:ndev])
-    args = _inputs(nlev, ny, nx, seed=5 * ny + nx, undefs=True)
-    ref = jax.jit(derived_fields)(*args)
-
+    args = _inputs(nlev, ny, nx, seed=5 * ny + nx, undefs=undefs)
     ny_p, nx_p = padded_shape_sharded(ny, nx, mesh_shape[1], mesh_shape[2])
     assert (ny_p, nx_p) != (ny, nx)
     pargs = tuple(
         pad_field(a, ny_p, nx_p) if hasattr(a, "mask") else
         (pad_array(a, ny_p, nx_p) if a.ndim == 2 else a)
         for a in args)
-    got = derived_fields_fused_sharded(mesh, *pargs, interpret=True,
-                                       block=block,
-                                       global_shape=(ny, nx))
+    ref = jax.jit(derived_fields)(*pargs)
+    got = _sharded(mesh)(*pargs)
     for name in ref._fields:
-        ra = getattr(ref, name)
-        ga = trim_field(getattr(got, name), ny, nx)
+        ra, ga = getattr(ref, name), getattr(got, name)
         rm = np.asarray(ra.mask)
+        assert not rm[..., ny + 1:, :].any(), name   # dead rows stay dead
         assert np.array_equal(rm, np.asarray(ga.mask)), name
         rv, gv = np.asarray(ra.values), np.asarray(ga.values)
         with np.errstate(all="ignore"):
@@ -250,23 +261,23 @@ def test_sharded_ensemble_matches_unsharded(mesh_shape):
     cmp(jref.prob_t_freeze, got.prob_t_freeze, "jnp-x-check prob_tf")
 
 
-@pytest.mark.parametrize("block", [(8, 32), (4, 64)])
-def test_sharded_stacked_matches_per_field(block):
-    """stacked=True on the sharded entry returns the SoA layout with the
-    same values/masks as the per-field result (accessors recover each
-    Field bitwise)."""
+@pytest.mark.parametrize("undefs", [True, False])
+def test_sharded_stacked_matches_per_field(undefs):
+    """The stacked layout sharded (9 mask planes, or 2 on fully defined
+    inputs) carries the same values and masks as the per-field result;
+    the accessors recover each Field bitwise."""
     mesh_shape, nlev, ny, nx = (1, 2, 2), 2, 32, 64
     ndev = int(np.prod(mesh_shape))
     if len(jax.devices()) < ndev:
         pytest.skip("not enough devices")
     mesh = grid_mesh(mesh_shape, devices=jax.devices()[:ndev])
-    args = _inputs(nlev, ny, nx, seed=17, undefs=True)
+    args = _inputs(nlev, ny, nx, seed=17, undefs=undefs)
 
-    ref = derived_fields_fused_sharded(mesh, *args, interpret=True,
-                                       block=block)
-    got = derived_fields_fused_sharded(mesh, *args, interpret=True,
-                                       block=block, stacked=True)
+    ref = _sharded(mesh)(*args)
+    got = _sharded(mesh, derived_fields_stacked,
+                   all_defined=not undefs)(*args)
     assert got.values.shape == (12, nlev, ny, nx)
+    assert got.masks.shape[0] == (9 if undefs else 2)
     for i, name in enumerate(ref._fields):
         ra, ga = getattr(ref, name), got.field(i)
         rm = np.asarray(ra.mask)
@@ -275,50 +286,36 @@ def test_sharded_stacked_matches_per_field(block):
                               np.asarray(ga.values)[rm]), name
 
 
-@pytest.mark.parametrize("block", [(8, 32), (4, 64)])
+@pytest.mark.parametrize("gates", [True, False])
 @pytest.mark.parametrize("mesh_shape,nlev,ny,nx", [
     ((1, 2, 2), 2, 48, 64),
     ((1, 4, 1), 2, 64, 96),
     ((1, 1, 4), 2, 32, 128),
 ])
-def test_sharded_all_defined_matches(mesh_shape, nlev, ny, nx, block):
-    """The sharded all_defined path (mask-free halo exchange + the
-    2-gate kernel) equals the default sharded path bitwise on fully
-    defined inputs, per-field and stacked."""
+def test_sharded_all_defined_matches(mesh_shape, nlev, ny, nx, gates):
+    """The sharded 2-plane layout on fully defined inputs equals the
+    one-device pipeline, with the data-dependent gates firing near the
+    shard seams or not at all."""
     ndev = int(np.prod(mesh_shape))
     if len(jax.devices()) < ndev:
         pytest.skip("not enough devices")
     mesh = grid_mesh(mesh_shape, devices=jax.devices()[:ndev])
-    args = list(_inputs(nlev, ny, nx, seed=5 * ny + nx, undefs=False))
-    # exercise both data-dependent gates
-    import jax.numpy as jnp
-    from mi_fieldcalc_tpu.field import Field
-    tv = np.asarray(args[0].values).copy()
-    tv[0, 3, 3] = 500.0            # beyond the e_sat table
-    tv[-1, ny // 2:ny // 2 + 4, 5:9] = 290.0    # |grad T| = 0 plateau
-    args[0] = Field(jnp.asarray(tv), args[0].mask)
+    args = _inputs(nlev, ny, nx, seed=5 * ny + nx, undefs=False)
+    if gates:
+        args = _with_gates(args)
 
-    ref = derived_fields_fused_sharded(mesh, *args, interpret=True,
-                                       block=block)
-    got = derived_fields_fused_sharded(mesh, *args, interpret=True,
-                                       block=block, all_defined=True)
-    for name in ref._fields:
-        ra, ga = getattr(ref, name), getattr(got, name)
-        rm = np.asarray(ra.mask)
-        assert np.array_equal(rm, np.asarray(ga.mask)), name
-        assert np.array_equal(np.asarray(ra.values)[rm],
-                              np.asarray(ga.values)[rm]), name
-
-    st = derived_fields_fused_sharded(mesh, *args, interpret=True,
-                                      block=block, stacked=True,
-                                      all_defined=True)
+    ref = jax.jit(derived_fields)(*args)
+    st = _sharded(mesh, derived_fields_stacked, all_defined=True)(*args)
     assert st.masks.shape[0] == 2
     for i, name in enumerate(ref._fields):
         ra, ga = getattr(ref, name), st.field(i)
         rm = np.asarray(ra.mask)
         assert np.array_equal(rm, np.asarray(ga.mask)), name
-        assert np.array_equal(np.asarray(ra.values)[rm],
-                              np.asarray(ga.values)[rm]), name
+        with np.errstate(all="ignore"):
+            assert np.allclose(np.asarray(ra.values)[rm],
+                               np.asarray(ga.values)[rm], rtol=2e-5,
+                               atol=1e-30), name
+    assert np.asarray(ref.rh.mask).all() != gates
 
 
 @pytest.mark.parametrize("plv", [(925.0, 850.0, 500.0), (1000.0, 50.0)])
@@ -354,38 +351,29 @@ def test_sharded_isobaric_defined_inputs_matches(plv):
                                atol=5e-6), name
 
 
-@pytest.mark.parametrize("block", [(8, 32), (4, 64)])
-def test_sharded_padded_all_defined_matches(block):
-    """Sharded + padded + fast path, together: on the logical region the
-    results equal the sharded masked path bitwise."""
-    from mi_fieldcalc_tpu.layout import (pad_array, pad_field,
-                                         padded_shape_sharded)
+@pytest.mark.parametrize("mesh_shape", [(1, 2, 2), (1, 4, 1)])
+def test_sharded_padded_all_defined_matches(mesh_shape):
+    """Sharded + padded + 2-plane layout, together: grids padded with
+    defined edge copies stay fully defined, and the sharded result
+    equals the one-device one on the whole padded grid."""
+    from mi_fieldcalc_tpu.layout import padded_shape_sharded
 
-    mesh_shape, nlev, ny, nx = (1, 2, 2), 2, 43, 117
+    nlev, ny, nx = 2, 43, 117
     ndev = int(np.prod(mesh_shape))
     if len(jax.devices()) < ndev:
         pytest.skip("not enough devices")
     mesh = grid_mesh(mesh_shape, devices=jax.devices()[:ndev])
     args = _inputs(nlev, ny, nx, seed=11 * ny, undefs=False)
-
     ny_p, nx_p = padded_shape_sharded(ny, nx, mesh_shape[1], mesh_shape[2])
     assert (ny_p, nx_p) != (ny, nx)
-    pargs = tuple(
-        pad_field(a, ny_p, nx_p) if hasattr(a, "mask") else
-        (pad_array(a, ny_p, nx_p) if a.ndim == 2 else a)
-        for a in args)
-    ref = derived_fields_fused_sharded(mesh, *pargs, interpret=True,
-                                       block=block,
-                                       global_shape=(ny, nx))
-    got = derived_fields_fused_sharded(mesh, *pargs, interpret=True,
-                                       block=block,
-                                       global_shape=(ny, nx),
-                                       all_defined=True)
-    for name in ref._fields:
-        ra, ga = getattr(ref, name), getattr(got, name)
-        gm = np.asarray(ga.mask)[..., :ny, :nx]
-        rm = np.asarray(ra.mask)[..., :ny, :nx]
-        assert np.array_equal(rm, gm), name
-        assert np.array_equal(np.asarray(ra.values)[..., :ny, :nx][rm],
-                              np.asarray(ga.values)[..., :ny, :nx][rm]),\
-            name
+    pargs = _pad_defined(args, ny_p, nx_p)
+    ref = jax.jit(derived_fields)(*pargs)
+    got = _sharded(mesh, derived_fields_stacked, all_defined=True)(*pargs)
+    for i, name in enumerate(ref._fields):
+        ra, ga = getattr(ref, name), got.field(i)
+        rm = np.asarray(ra.mask)
+        assert np.array_equal(rm, np.asarray(ga.mask)), name
+        with np.errstate(all="ignore"):
+            assert np.allclose(np.asarray(ra.values)[rm],
+                               np.asarray(ga.values)[rm], rtol=2e-5,
+                               atol=1e-30), name

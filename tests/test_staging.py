@@ -2,9 +2,8 @@
 
 End-to-end: numpy sentinel stacks -> native batch codec -> device Fields
 -> pipeline -> sentinel numpy, compared against the plain Field-API
-path.  On the CPU test backend the runners take the jnp pipeline; the
-kernel route is exercised here with the kernel in the Pallas
-interpreter, and compiled on the card by chip_smoke.py.
+path.  chip_smoke.py runs the same comparisons on the card at the
+operational size.
 """
 
 import numpy as np
@@ -102,8 +101,8 @@ def test_stream_empty_and_single():
 
 
 def test_stage_step_all_defined_gate():
-    """The decode counts route fully defined steps to the kernel's
-    ALL_DEFINED fast path (and only those)."""
+    """The decode counts route fully defined steps to the 2-plane mask
+    layout (and only those)."""
     from mi_fieldcalc_tpu.staging import HostStager, _stage_step
 
     args = list(_inputs())          # has undefs in tk and q
@@ -126,11 +125,12 @@ def test_stage_step_all_defined_gate():
     assert not all_defined
 
 
-def test_encode_step_mask_map_layouts():
+@pytest.mark.parametrize("tag", ["9", "2"])
+def test_encode_step_mask_map_layouts(tag):
     """_encode_step consumes every stacked mask layout (12 planes from
-    the jnp pipeline, the kernel's 9 deduplicated planes and its 2-plane
+    the per-field pipeline, the 9 deduplicated planes and the 2-plane
     all_defined gates) and produces identical sentinel output dicts."""
-    from mi_fieldcalc_tpu.ops.fused import derived_fields_fused
+    from mi_fieldcalc_tpu.models import derived_fields_stacked
     from mi_fieldcalc_tpu.staging import _encode_step
 
     nlev, ny, nx = 2, 21, 140
@@ -145,21 +145,19 @@ def test_encode_step_mask_map_layouts():
     outs = {"12": _encode_step(
         np.stack([np.asarray(f.values) for f in ref]),
         np.stack([np.asarray(f.mask) for f in ref]), ny, nx, UNDEF)}
-    for tag, kw in (("9", {}), ("2", dict(all_defined=True))):
-        o = derived_fields_fused(*args, interpret=True, stacked=True,
-                                 block=(8, 32), **kw)
-        assert o.masks.shape[0] == int(tag)
-        outs[tag] = _encode_step(np.asarray(o.values),
-                                 np.asarray(o.masks), ny, nx, UNDEF)
-    for tag in ("9", "2"):
-        assert outs[tag].keys() == outs["12"].keys()
-        for name in outs["12"]:
-            r, g = outs["12"][name], outs[tag][name]
-            rm = r != np.float32(UNDEF)
-            np.testing.assert_array_equal(rm, g != np.float32(UNDEF),
-                                          err_msg=f"{tag}/{name}")
-            np.testing.assert_allclose(g[rm], r[rm], rtol=2e-5,
-                                       err_msg=f"{tag}/{name}")
+    o = jax.jit(derived_fields_stacked, static_argnames="all_defined")(
+        *args, all_defined=tag == "2")
+    assert o.masks.shape[0] == int(tag)
+    outs[tag] = _encode_step(np.asarray(o.values), np.asarray(o.masks),
+                             ny, nx, UNDEF)
+    assert outs[tag].keys() == outs["12"].keys()
+    for name in outs["12"]:
+        r, g = outs["12"][name], outs[tag][name]
+        rm = r != np.float32(UNDEF)
+        np.testing.assert_array_equal(rm, g != np.float32(UNDEF),
+                                      err_msg=f"{tag}/{name}")
+        np.testing.assert_allclose(g[rm], r[rm], rtol=2e-5,
+                                   err_msg=f"{tag}/{name}")
 
 
 def test_run_hlevel_suite_np():
@@ -247,22 +245,26 @@ def test_run_vessel_icing_np():
 
 
 @pytest.mark.parametrize("undefs", [True, False])
-def test_staging_kernel_route_matches_jnp_route(monkeypatch, undefs):
-    """run_derived_fields_np through the kernel (here in the Pallas
-    interpreter) and through the jnp pipeline give the same sentinel
-    outputs: the kernel's stacked layouts, the all_defined gate and the
-    codec's mask maps compose end to end."""
-    import functools
-    from mi_fieldcalc_tpu.ops import fused as fused_mod
+def test_staging_layouts_match_per_field_pipeline(undefs):
+    """run_derived_fields_np (9 mask planes with undefs, 2 when the
+    decode counts prove every input defined) gives the sentinel outputs
+    of the per-field pipeline on the same staged arrays: the stacked
+    layouts, the all_defined gate and the codec's mask maps compose end
+    to end."""
+    from mi_fieldcalc_tpu.staging import _encode_step, _stage_step
 
-    monkeypatch.setattr(fused_mod, "derived_fields_fused", functools.partial(
-        fused_mod.derived_fields_fused, interpret=True, block=(8, 32)))
     args = list(_inputs(2, 21, 70, seed=6))
     if not undefs:
         for a in args[:5]:
             a[~np.isfinite(a) | (a == np.float32(UNDEF))] = 1.0
-    ref = run_derived_fields_np(*args, kernel=False)
-    got = run_derived_fields_np(*args, kernel=True)
+    staged, (ny, nx), all_defined = _stage_step(
+        tuple(args), HostStager(k=4, pad=False), UNDEF)
+    assert all_defined == (not undefs)
+    out = jax.jit(derived_fields)(*staged)
+    ref = _encode_step(np.stack([np.asarray(f.values) for f in out]),
+                       np.stack([np.asarray(f.mask) for f in out]),
+                       ny, nx, UNDEF)
+    got = run_derived_fields_np(*args)
     assert got.keys() == ref.keys()
     for name in ref:
         rm = ref[name] != np.float32(UNDEF)
@@ -273,7 +275,7 @@ def test_staging_kernel_route_matches_jnp_route(monkeypatch, undefs):
 
 
 def test_run_derived_fields_np_levpack_param():
-    """The LEV-bit-packed staging option is gone with the kernel ABI it
+    """The LEV-bit-packed staging option is gone with the mask ABI it
     fed: passing it raises instead of being ignored."""
     args = _inputs(seed=8)
     with pytest.raises(TypeError):
